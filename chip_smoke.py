@@ -1,28 +1,41 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port (``mobgs_tpu_torch``).
 
-Drives the port's serving path on one CUDA card at the seesaw protocol's
-full width (512x288, 24 frames, 20k static + 10k dynamic seeds at x2
-capacity, tiles_per_gauss=9, max_per_tile=256), with a scene made from a
-seed and random Sandwich weights:
+Drives the port's serving path and its flow-off training step on one CUDA
+card at the seesaw protocol's full width (512x288, 24 frames, 20k static +
+10k dynamic seeds at x2 capacity = 40k + 20k slots, tiles_per_gauss=9,
+max_per_tile=256; training at B=2 views and E=9 latent exposures), with a
+scene made from a seed and random Sandwich and BLCE weights:
 
 1. the card's name and power limit, torch and CUDA versions;
-2. build the forward compositor kernel from ``mobgs_tpu_torch/csrc`` and
-   print ``-Xptxas -v``'s registers, shared memory and spills;
+2. build the forward and backward compositor kernels from
+   ``mobgs_tpu_torch/csrc`` (one nvcc each, started together) and print
+   ``-Xptxas -v``'s registers, shared memory and spills;
 3. build the scene on the card (the generator's ground-truth renders
    already run through the kernel);
-4. hold the kernel against its plain PyTorch version on one protocol view:
-   (a) default render, CE=11, with background; (b) the fused sub chain
-   with the dynamic mask as alpha mask; (c) alpha-only, CE=2;
+4. hold the forward kernel against its plain PyTorch version on one
+   protocol view: (a) default render, CE=11, with background; (b) the fused
+   sub chain with the dynamic mask as alpha mask; (c) alpha-only, CE=2;
    (d) image-only, CE=9; (e) the decoded ``render_view`` image;
 5. serve 8 SIBR viewer requests through ``ViewerServer`` and
    ``make_viewer_render``; each reply must equal a direct render;
 6. render 10 frames (bench.py's render loop) and 10 more with the
-   dynamic alpha fused in, report frames/s, and read the kernel's launch
-   counts of phases 5-6 (the main path); then time the kernel with CUDA
-   events at protocol shape beside the plain version;
-7. print the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
-   line last.
+   dynamic alpha fused in, report frames/s, and read the forward kernel's
+   launch counts of phases 5-6 (the serving path); trace a render;
+7. hold the backward kernel against its plain version on the protocol
+   view: (a) CE=9 image-only (latent render), (b) CE=11 with the sub chain
+   (mid render), (c) CE=2 alpha-only, upstream gradients from a seeded
+   numpy generator;
+8. one train step's loss and gradients through the kernels against the
+   plain route (``RasterConfig(backend="plain")``), same state and batch;
+9. train: 3 warm-up and 20 timed flow-off steps through
+   ``make_train_step`` with ``BatchSampler(24, 2, seed=0)``; report it/s,
+   loss and PSNR per step, read the launch counts of the timed steps (the
+   training path: 16 + 2 forward and 16 + 2 backward launches per step),
+   check the parameters moved, and trace one step;
+10. time every kernel with CUDA events at protocol shape beside its plain
+    version and its bound, print the ``{"kernels": [...]}`` line, then the
+    ``{"ok": true, ...}`` line last.
 
 Every failure raises and exits non-zero. Without a CUDA card it exits 2
 and prints no result. Run: ``python3 chip_smoke.py``.
@@ -48,13 +61,31 @@ N_FRAMES = 10
 # so the two differ in the last bits of each product and sum.
 IMG_ATOL = 1e-4
 DEPTH_RTOL = 1e-3   # where alpha > 1e-3
+# Backward kernel vs plain, per gradient column, max|k - p| / max|p|: the
+# kernel's per-pixel running sums, warp reductions and atomics (whose order
+# changes from run to run) add in other orders than cumsum and index_add_,
+# and the suffix-anchor subtraction amplifies that by up to 1/(1 - alpha)
+# <= 100. Measured on an H100: at most 1.2e-6 at the protocol view.
+BWD_REL = 1e-4
+# A train step through the kernels vs the plain route, per gradient leaf,
+# max|k - p| / max|p|: the compositor's differences above, carried back
+# through projection and the Sandwich decoder; BLCE's 1/|w| axis
+# normalisation multiplies them in the pose gradients. Measured: at most
+# 6e-7, and the loss equal.
+STEP_REL = {"stat": 1e-4, "dyn": 1e-4, "sandwich": 1e-4, "blce": 1e-3,
+            "offsets": 1e-4}
+LOSS_RTOL = 1e-5
+N_WARM, N_STEPS, B_VIEWS, E_WARP = 3, 20, 2, 9
 # Published H100 SXM peaks (NVIDIA data sheet, at 700 W): float32 outside
 # the tensor cores, and HBM3 bandwidth.
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
-SOURCE = "mobgs_tpu_torch/csrc/raster_fwd.cu"
+SOURCES = {"raster_fwd": "mobgs_tpu_torch/csrc/raster_fwd.cu",
+           "raster_bwd": "mobgs_tpu_torch/csrc/raster_bwd.cu"}
 REPLACES = {"raster_fwd": "mobgs_tpu/ops/pallas_raster.py:118",
-            "raster_fwd_sub": "mobgs_tpu/ops/pallas_raster.py:151"}
+            "raster_fwd_sub": "mobgs_tpu/ops/pallas_raster.py:151",
+            "raster_bwd": "mobgs_tpu/ops/pallas_raster.py:203",
+            "raster_bwd_sub": "mobgs_tpu/ops/pallas_raster.py:285"}
 
 
 def require(ok, what):
@@ -134,13 +165,16 @@ def main():
 
     phase("2 build")
     t0 = time.time()
-    so, log = cuda_raster.build_kernels()
-    cuda_raster._library()
+    built = cuda_raster.build_kernels()
+    for name in built:
+        cuda_raster._library(name)
     times["build_s"] = time.time() - t0
-    print(f"built {so.name} in {times['build_s']:.1f} s")
-    for line in log.splitlines():
-        if any(k in line for k in ("Compiling entry", "registers", "spill")):
-            print("  ptxas:", line.split("info    :")[-1].strip())
+    print(f"built {', '.join(so.name for so, _ in built.values())} in "
+          f"{times['build_s']:.1f} s")
+    for name, (_, log) in built.items():
+        for line in log.splitlines():
+            if any(k in line for k in ("Compiling entry", "registers", "spill")):
+                print(f"  ptxas {name}:", line.split("info    :")[-1].strip())
 
     phase("3 scene")
     t0 = time.time()
@@ -299,10 +333,11 @@ def main():
             d = torch.stack([o.d_alpha for o in outs])
             require(float(d.max()) > 0.5 and bool((d <= 1.0).all()), "dynamic alpha")
         print(f"{label}: {rates[label]:.2f} frames/s")
-    launches = dict(cuda_raster.launches)
-    print(f"main-path launches: {json.dumps(launches)}")
-    for key, n in launches.items():
-        require(n > 0, f"kernel {key} was not launched on the main path")
+    serve_launches = dict(cuda_raster.launches)
+    print(f"serving-path launches: {json.dumps(serve_launches)}")
+    for key in ("raster_fwd", "raster_fwd_sub"):
+        require(serve_launches[key] > 0,
+                f"kernel {key} was not launched on the serving path")
 
     # where a default render's time goes: device kernels by name, and the
     # device's busy share of the wall time (the profiler's own host cost
@@ -333,50 +368,269 @@ def main():
     else:
         print("trace: the profiler recorded no device time (not measured)")
 
+    # ---- the training slice ----
+    from mobgs_tpu_torch.config import OptimizationParams
+    from mobgs_tpu_torch.models import blce as B
+    from mobgs_tpu_torch.train import loop as L
+    from mobgs_tpu_torch.train import step as S
+
+    phase("7 backward kernel vs plain")
+    T_tiles = bins.gauss_ids.shape[0]
+    ids, cnt, ntx = bins.gauss_ids.contiguous(), bins.counts.contiguous(), bins.n_tiles_x
+    ones = torch.ones(N, 1, device=dev)
+    sub_op = geom.opacity * geom.dyn_mask
+    rng = np.random.default_rng(7)
+    bwd_cases = {
+        "a_latent_ce9": (geom.colors, False),
+        "b_mid_ce11_sub": (torch.cat([geom.colors, splats.depths[:, None], ones], 1), True),
+        "c_alpha_only_ce2": (torch.cat([splats.depths[:, None], ones], 1), False),
+    }
+    bwd_inputs, bwd_errs = {}, {}
+    rec_names = ("mx", "my", "conic_a", "conic_b", "conic_c", "opacity", "sub_opacity")
+    for name, (col, sub) in bwd_cases.items():
+        col = col.detach().contiguous()
+        rec = cuda_raster.pack_records(splats, geom.opacity, sub_op if sub else None).detach()
+        with torch.no_grad():
+            out, out2 = cuda_raster.composite_fwd(ids, cnt, rec, col, ntx, sub)
+        g = torch.as_tensor(rng.normal(size=out.shape).astype(np.float32), device=dev)
+        g2 = (torch.as_tensor(rng.normal(size=out2.shape).astype(np.float32), device=dev)
+              if sub else None)
+        args = (ids, cnt, rec, col, out, out2, g, g2, ntx, sub)
+        k = cuda_raster.composite_bwd(*args)
+        p = cuda_raster.composite_bwd_plain(*args)
+        torch.cuda.synchronize()
+        leaves = {rec_names[j]: (k[0][:, j], p[0][:, j]) for j in range(7 if sub else 6)}
+        leaves["colors"] = (k[1], p[1])
+        rel = {nm: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+               for nm, (a, b) in leaves.items()}
+        abs_err = max(float((a - b).abs().max()) for a, b in leaves.values())
+        print(f"{name}: max |k-p|/max|p| {json.dumps({n: float(f'{v:.3g}') for n, v in rel.items()})}, "
+              f"max abs {abs_err:.3g}, CE={col.shape[1]}")
+        require(all(bool(torch.isfinite(x).all()) for x in k), f"{name} not finite")
+        require(not k[0][:, 7 if sub else 6:].any(), f"{name}: unused record columns written")
+        for nm, (a, b) in leaves.items():
+            require(float(b.abs().max()) > 0, f"{name} {nm}: the plain gradient is zero")
+            require(rel[nm] <= BWD_REL, f"{name} {nm}: {rel[nm]:.3g} > {BWD_REL}")
+        bwd_inputs[name] = args
+        bwd_errs[name] = abs_err
+
+    def train_state():
+        stat_t = G.create_state(s_pts, s_cols, np.zeros(len(s_pts), np.float32),
+                                capacity=len(s_pts) * CAP_MULT,
+                                generator=torch.Generator(device=dev).manual_seed(0),
+                                device=dev)
+        dyn_t = G.create_state(d_traj[:, 0], np.full((len(d_traj), 3), 0.5, np.float32),
+                               np.zeros(len(d_traj), np.float32),
+                               capacity=len(d_traj) * CAP_MULT,
+                               trajectory=torch.as_tensor(d_traj),
+                               traj_times=torch.as_tensor(data.time), device=dev)
+        sw = init_sandwich(torch.Generator(device=dev).manual_seed(1), device=dev)
+        bl = B.init_blce(torch.Generator(device=dev).manual_seed(2), num_views=FRAMES,
+                         num_warp=E_WARP, device=dev)
+        return S.init_train_state(stat_t, dyn_t, sw, bl)
+
+    # bench.py's seesaw overlay: batch 2, flow off
+    opt = OptimizationParams(iterations=10_000, batch_size=B_VIEWS, lambda_flow_loss=0.0)
+
+    phase("8 train step: kernels vs plain")
+    t0 = time.time()
+    ts = train_state()
+    sampler = L.BatchSampler(FRAMES, B_VIEWS, seed=0)
+    batch = L.make_batch(data, sampler.next_ids(), dev)
+    groups = {"stat": G.split_diff(ts.stat)[0], "dyn": G.split_diff(ts.dyn)[0],
+              "sandwich": S.sandwich_leaves(ts.sandwich),
+              "blce": ts.blce.params.leaves()}
+    names = {"stat": G.DIFF_FIELDS, "dyn": G.DIFF_FIELDS,
+             "sandwich": ("w1", "w2"), "blce": B.BLCE_FIELDS}
+    step_res = {}
+    for backend in ("cuda", "plain"):
+        fwd = S.make_forward(opt, W, H, data.max_time, E_WARP,
+                             cfg._replace(backend=backend))
+        off = torch.zeros((B_VIEWS, ts.stat.capacity + ts.dyn.capacity, 2),
+                          device=dev, requires_grad=True)
+        total, aux = fwd(ts.stat, ts.dyn, ts.sandwich, ts.blce, off, batch)
+        leaves = [p for grp in groups.values() for p in grp] + [off]
+        grads = torch.autograd.grad(total, leaves, allow_unused=True)
+        step_res[backend] = (float(total.detach()), float(aux["psnr"]),
+                             [torch.zeros_like(p) if gr is None else gr
+                              for p, gr in zip(leaves, grads)])
+        torch.cuda.synchronize()
+    (lk, pk, gk), (lp, pp, gp) = step_res["cuda"], step_res["plain"]
+    print(f"loss kernels {lk!r} plain {lp!r} (rel {abs(lk - lp) / abs(lp):.3g}); "
+          f"psnr {pk:.4f} / {pp:.4f}")
+    require(np.isfinite(lk) and abs(lk - lp) <= LOSS_RTOL * abs(lp), "train-step loss")
+    i, worst, n_leaves = 0, {}, 0
+    failed = []
+    for grp, leaves in list(groups.items()) + [("offsets", (None,))]:
+        for j in range(len(leaves)):
+            nm = "offsets" if grp == "offsets" else f"{grp}.{names[grp][j]}"
+            a, b = gk[i], gp[i]
+            i += 1
+            require(bool(torch.isfinite(a).all()), f"{nm} gradient not finite")
+            scale = float(b.abs().max())
+            if scale == 0.0:
+                require(not a.any(), f"{nm}: kernels give a gradient, plain none")
+                continue
+            n_leaves += 1
+            r = float((a - b).abs().max()) / scale
+            worst[grp] = max(worst.get(grp, 0.0), r)
+            if r > STEP_REL[grp]:
+                failed.append(f"{nm} {r:.3g}")
+    print(f"gradient leaves compared: {n_leaves}; worst max|k-p|/max|p| by group: "
+          f"{json.dumps({k: float(f'{v:.3g}') for k, v in worst.items()})}")
+    require(not failed, f"train-step gradients beyond tolerance: {failed}")
+    times["step_check_s"] = time.time() - t0
+    del step_res, gk, gp
+
+    phase("9 train")
+    step_fn = S.make_train_step(opt, W, H, data.max_time, E_WARP, cfg)
+    before = {f"{grp}.{n}": p.detach().clone() for grp in ("stat", "dyn")
+              for n, p in zip(G.DIFF_FIELDS, groups[grp])}
+    for _ in range(N_WARM):
+        ts, m = step_fn(ts, L.make_batch(data, sampler.next_ids(), dev))
+    torch.cuda.synchronize()
+    for key in cuda_raster.launches:
+        cuda_raster.launches[key] = 0
+    step_s, hist = [], []
+    for k in range(N_STEPS):
+        b = L.make_batch(data, sampler.next_ids(), dev)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ts, m = step_fn(ts, b)
+        torch.cuda.synchronize()
+        step_s.append(time.time() - t0)
+        hist.append((float(m.loss), float(m.psnr), int(m.tile_max)))
+    train_launches = dict(cuda_raster.launches)
+    rates["train_it_s"] = N_STEPS / sum(step_s)
+    for k, (loss, ps, tm) in enumerate(hist):
+        print(f"  step {N_WARM + k + 1:2d}: loss {loss:.6f} psnr {ps:.4f} "
+              f"tile_max {tm} ({1e3 * step_s[k]:.1f} ms)")
+    require(all(np.isfinite(h[0]) and np.isfinite(h[1]) for h in hist),
+            "loss or PSNR not finite")
+    print(f"train: {rates['train_it_s']:.3f} it/s flow off, B={B_VIEWS} E={E_WARP} "
+          f"{W}x{H}, {ts.stat.capacity}+{ts.dyn.capacity} slots, on {card}; "
+          f"median step {1e3 * float(np.median(step_s)):.1f} ms")
+    print(f"training-path launches ({N_STEPS} steps): {json.dumps(train_launches)}")
+    # per view: E-1 latent renders (plain chain) and the mid render (sub chain)
+    per_step = {"raster_fwd": B_VIEWS * (E_WARP - 1), "raster_fwd_sub": B_VIEWS,
+                "raster_bwd": B_VIEWS * (E_WARP - 1), "raster_bwd_sub": B_VIEWS}
+    for key, n in per_step.items():
+        require(train_launches[key] == n * N_STEPS,
+                f"{key}: {train_launches[key]} launches, expected {n} per step")
+    moved, still = 0, []
+    for grp in ("stat", "dyn"):
+        opt_state = getattr(ts, f"{grp}_opt")
+        for n, p, mu in zip(G.DIFF_FIELDS, G.split_diff(getattr(ts, grp))[0], opt_state.mu):
+            if not mu.any():
+                continue  # no gradient reached this field
+            if torch.equal(p.detach(), before[f"{grp}.{n}"]):
+                still.append(f"{grp}.{n}")
+            moved += 1
+    print(f"Gaussian fields with a gradient: {moved}, all changed: {not still}")
+    require(moved > 0 and not still, f"fields with a gradient did not change: {still}")
+
+    b = L.make_batch(data, sampler.next_ids(), dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ts, m = step_fn(ts, b)
+        torch.cuda.synchronize()
+        wall_us = (time.time() - t0) * 1e6
+    by_name = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+    busy_us = sum(by_name.values())
+    if busy_us:
+        print(f"trace: {wall_us:.0f} us wall per train step, {busy_us:.0f} us device "
+              f"busy ({100 * busy_us / wall_us:.1f} %), {len(by_name)} kernel names")
+        for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+            print(f"  {us:8.1f} us  {name[:90]}")
+    else:
+        print("trace: the profiler recorded no device time (not measured)")
+
     # ---- kernel timing at protocol shape (launches not counted above) ----
     entries = []
+
+    def entry(key, ms, plain_ms, ops, bytes_, err):
+        bound_ms = max(ops / PEAK_F32, bytes_ / PEAK_BYTES) * 1e3
+        entries.append({
+            "name": key, "route": "cuda",
+            "source": SOURCES["raster_bwd" if "bwd" in key else "raster_fwd"],
+            "replaces": REPLACES[key], "launches": train_launches[key],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "operations" if ops / PEAK_F32 >= bytes_ / PEAK_BYTES else "bytes",
+            "library_ms": None,
+        })
+        return bound_ms
+
     for key, case in (("raster_fwd", "a_default_ce11"),
                       ("raster_fwd_sub", "b_fused_sub")):
         sub = key == "raster_fwd_sub"
-        col = torch.cat([geom.colors, splats.depths[:, None],
-                         torch.ones(N, 1, device=dev)], 1).contiguous()
-        rec = cuda_raster.pack_records(
-            splats, geom.opacity, geom.opacity * geom.dyn_mask if sub else None)
-        ids, cnt = bins.gauss_ids.contiguous(), bins.counts.contiguous()
-        ntx = bins.n_tiles_x
-        ms = cuda_ms(lambda: cuda_raster.composite_fwd(ids, cnt, rec, col, ntx, sub), 50)
-        work = {}
-        cuda_raster.composite_tiles_plain(ids, cnt, rec, col, ntx, sub, work=work)
-        plain_ms = cuda_ms(lambda: cuda_raster.composite_tiles_plain(
-            ids, cnt, rec, col, ntx, sub), 5)
-        T, CE = ids.shape[0], col.shape[1]
+        col = torch.cat([geom.colors, splats.depths[:, None], ones], 1).detach().contiguous()
+        rec = cuda_raster.pack_records(splats, geom.opacity,
+                                       sub_op if sub else None).detach()
+        with torch.no_grad():
+            ms = cuda_ms(lambda: cuda_raster.composite_fwd(ids, cnt, rec, col, ntx, sub), 50)
+            work = {}
+            cuda_raster.composite_tiles_plain(ids, cnt, rec, col, ntx, sub, work=work)
+            plain_ms = cuda_ms(lambda: cuda_raster.composite_tiles_plain(
+                ids, cnt, rec, col, ntx, sub), 5)
+        CE = col.shape[1]
         pairs = int(work["slots"].sum()) * cuda_raster.P
         # per live (slot, pixel) pair: dx, dy, sigma (11), exp (1), alpha (2),
         # transmittance (2); per kept pair: weight (2) and CE multiply-adds
         ops = pairs * 16 + int(work["valid"]) * (2 + 2 * CE)
         n_ref = int(work["n_ref"])
-        bytes_ = 4 * (int(work["slots"].sum()) + T + n_ref * (6 + CE) + T * 256 * CE)
+        bytes_ = 4 * (int(work["slots"].sum()) + T_tiles + n_ref * (6 + CE)
+                      + T_tiles * 256 * CE)
         if sub:
             ops += pairs * 4 + int(work["valid_sub"]) * 3
-            bytes_ += 4 * (n_ref + T * 256)
-        bound_ms = max(ops / PEAK_F32, bytes_ / PEAK_BYTES) * 1e3
-        entries.append({
-            "name": key, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[key], "launches": launches[key],
-            "max_abs_err": max(errs[case].get(k2, 0.0)
-                               for k2 in ("image", "alpha", "sub_alpha")),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "operations" if ops / PEAK_F32 >= bytes_ / PEAK_BYTES
-            else "bytes",
-            "library_ms": None,
-        })
+            bytes_ += 4 * (n_ref + T_tiles * 256)
+        err = max(errs[case].get(k2, 0.0) for k2 in ("image", "alpha", "sub_alpha"))
+        bound_ms = entry(key, ms, plain_ms, ops, bytes_, err)
         print(f"{key}: {ms:.4f} ms kernel, {plain_ms:.3f} ms plain, bound "
               f"{bound_ms:.4f} ms ({ops / 1e9:.3f} GOP, {bytes_ / 1e6:.2f} MB, "
-              f"{pairs} pairs, T={T}, K={ids.shape[1]}, CE={CE})")
+              f"{pairs} pairs, T={T_tiles}, K={ids.shape[1]}, CE={CE})")
+
+    for key, case in (("raster_bwd", "a_latent_ce9"), ("raster_bwd_sub", "b_mid_ce11_sub")):
+        args = bwd_inputs[case]
+        _, _, rec, col, _, _, _, _, _, sub = args
+        ms = cuda_ms(lambda: cuda_raster.composite_bwd(*args), 50)
+        plain_ms = cuda_ms(lambda: cuda_raster.composite_bwd_plain(*args), 5)
+        work = {}
+        with torch.no_grad():
+            cuda_raster.composite_tiles_plain(ids, cnt, rec, col, ntx, sub, work=work)
+        CE = col.shape[1]
+        pairs = int(work["slots"].sum()) * cuda_raster.P
+        n_ref = int(work["n_ref"])
+        rows = 7 if sub else 6
+        # per live pair the replay of the forward (16); per kept pair: T_i,
+        # weight (3), c.g (2 CE), running sum (2), dL/dalpha (6), dL/dsigma
+        # (2), the five geometric terms (18), dL/do (1), CE colour terms, and
+        # the (6 + CE) sums over pixels
+        ops = pairs * 16 + int(work["valid"]) * (38 + 4 * CE)
+        # ids, counts, records and colours of the referenced Gaussians, out
+        # and g read once, the zeroed gradient tables written once, and a
+        # read-modify-write of each referenced Gaussian's gradient row
+        N_all = rec.shape[0]
+        bytes_ = 4 * (int(work["slots"].sum()) + T_tiles + n_ref * (rows + CE)
+                      + 2 * T_tiles * 256 * CE + N_all * (cuda_raster.R + CE)
+                      + 2 * n_ref * (rows + CE))
+        if sub:
+            # the subset chain: alpha and transmittance per live pair, 14 per
+            # kept pair and its sum over pixels; out2 and g2 read once
+            ops += pairs * 4 + int(work["valid_sub"]) * 15
+            bytes_ += 4 * 2 * T_tiles * 256
+        bound_ms = entry(key, ms, plain_ms, ops, bytes_, bwd_errs[case])
+        print(f"{key}: {ms:.4f} ms kernel (with the zeroed outputs), {plain_ms:.3f} ms "
+              f"plain, bound {bound_ms:.4f} ms ({ops / 1e9:.3f} GOP, {bytes_ / 1e6:.2f} MB, "
+              f"{pairs} pairs, {int(work['valid'])} kept, T={T_tiles}, CE={CE})")
     print(f"times: {json.dumps({k: round(v, 2) for k, v in times.items()})}")
     print(f"rates: {json.dumps(rates)}")
 
-    phase("7 result")
+    phase("10 result")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -17,18 +17,11 @@
 // per-pixel sums stay in registers. Plain C interface for ctypes: the
 // entry point returns cudaGetLastError() after the launch.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "raster_common.cuh"
+
+using namespace raster;
 
 namespace {
-
-constexpr int TILE = 16;
-constexpr int P = TILE * TILE;  // pixels per tile = threads per block
-constexpr int CH_MAX = 128;     // largest chunk
-constexpr int R = 8;            // record row: mx, my, a, b, c, o, o_sub, pad
-constexpr float ALPHA_MAX = 0.99f;
-constexpr float ALPHA_MIN = 1.0f / 255.0f;
-constexpr float TRANS_EPS = 1e-4f;
 
 template <int CEM, bool SUB>
 __global__ void __launch_bounds__(P)
@@ -94,36 +87,33 @@ raster_fwd_kernel(const int32_t* __restrict__ ids,     // [T, K]
 
     float Tc = 1.f, T2c = 1.f;  // exclusive prefix products in the chunk
     for (int s = 0; s < ch; ++s) {
-      // sigma and alpha are rounded op by op in the plain version's order
-      // (the _rn intrinsics are never contracted into FMAs), so the gates
-      // sigma >= 0 and alpha > 1/255 decide as they do there: a gate that
-      // rounding flips would move a pixel's sums by up to T/255.
-      const float dx = __fsub_rn(px, s_mx[s]);
-      const float dy = __fsub_rn(py, s_my[s]);
-      const float quad = __fadd_rn(__fmul_rn(__fmul_rn(s_a[s], dx), dx),
-                                   __fmul_rn(__fmul_rn(s_c[s], dy), dy));
-      const float sigma = __fadd_rn(__fmul_rn(0.5f, quad),
-                                    __fmul_rn(__fmul_rn(s_b[s], dx), dy));
+      // sigma, alpha and the transmittance steps come from
+      // raster_common.cuh, rounded as the plain version and the backward
+      // round them: a gate that rounding flips would move a pixel's sums
+      // by up to T/255.
+      float dx, dy;
+      const float sigma = splat_sigma(px, py, s_mx[s], s_my[s], s_a[s],
+                                      s_b[s], s_c[s], dx, dy);
       if (!(sigma >= 0.f)) continue;
       const float e = expf(-sigma);
-      const float alpha = fminf(ALPHA_MAX, __fmul_rn(s_o[s], e));
+      const float alpha = fminf(ALPHA_MAX, splat_raw_alpha(s_o[s], e));
       if (alpha > ALPHA_MIN) {
         const float w = alpha * Tc * T;
 #pragma unroll
         for (int c = 0; c < CEM; ++c)
           if (c < CE) acc[c] += w * s_col[s * CEM + c];
-        Tc *= 1.f - alpha;
+        Tc = trans_step(Tc, alpha);
       }
       if (SUB) {
-        const float alpha_s = fminf(ALPHA_MAX, __fmul_rn(s_os[s], e));
+        const float alpha_s = fminf(ALPHA_MAX, splat_raw_alpha(s_os[s], e));
         if (alpha_s > ALPHA_MIN) {
           acc2 += alpha_s * T2c * T2;
-          T2c *= 1.f - alpha_s;
+          T2c = trans_step(T2c, alpha_s);
         }
       }
     }
-    T *= Tc;
-    if (SUB) T2 *= T2c;
+    T = __fmul_rn(T, Tc);
+    if (SUB) T2 = __fmul_rn(T2, T2c);
     // chunk-level early exit for the whole tile; the barrier also keeps
     // the next chunk's staging from overwriting records still in use
     const bool more = SUB ? (T > TRANS_EPS || T2 > TRANS_EPS) : (T > TRANS_EPS);

@@ -1,8 +1,9 @@
-"""Carry weights across from the JAX package.
+"""Carry weights and training state across from the JAX package.
 
 The JAX NamedTuples' fields arrive as numpy arrays keyed by field name
-(``GaussianState._fields``, ``SandwichParams._fields``); the caller does
-the ``np.asarray`` on the JAX side, so this module never imports JAX.
+(``GaussianState._fields``, ``SandwichParams._fields``, ...); a nested
+NamedTuple arrives as a nested dict of the same shape. The caller does the
+``np.asarray`` on the JAX side, so this module never imports JAX.
 """
 
 from __future__ import annotations
@@ -11,8 +12,12 @@ import numpy as np
 import torch
 
 from mobgs_tpu_torch import resolve_device
-from mobgs_tpu_torch.models.gaussians import GaussianState
+from mobgs_tpu_torch.models.blce import BLCE_FIELDS, BLCEParams, BLCEState
+from mobgs_tpu_torch.models.gaussians import DIFF_FIELDS, GaussianState
 from mobgs_tpu_torch.models.sandwich import SandwichParams
+from mobgs_tpu_torch.train.densify import DensifyStats
+from mobgs_tpu_torch.train.optim import AdamState
+from mobgs_tpu_torch.train.step import TrainState
 
 
 def _tensors(fields: dict, names, device) -> dict:
@@ -29,3 +34,40 @@ def gaussian_state_from_numpy(fields: dict, device=None) -> GaussianState:
 
 def sandwich_from_numpy(fields: dict, device=None) -> SandwichParams:
     return SandwichParams(**_tensors(fields, SandwichParams._fields, device))
+
+
+def blce_from_numpy(fields: dict, device=None) -> BLCEState:
+    """``{"params": {BLCEParams fields}, "exposure_expo": [V]}``."""
+    params = BLCEParams(**_tensors(fields["params"], BLCE_FIELDS, device))
+    expo = _tensors(fields, ("exposure_expo",), device)["exposure_expo"]
+    return BLCEState(params, expo)
+
+
+def adam_from_numpy(fields: dict, names, device=None) -> AdamState:
+    """``{"mu": {name: array}, "nu": {...}, "step": int}``, the moments
+    ordered as ``names`` (the parameter group's field order)."""
+    mu = _tensors(fields["mu"], names, device)
+    nu = _tensors(fields["nu"], names, device)
+    return AdamState(mu=tuple(mu[n] for n in names),
+                     nu=tuple(nu[n] for n in names),
+                     step=int(np.asarray(fields["step"])))
+
+
+def train_state_from_numpy(fields: dict, device=None) -> TrainState:
+    """A JAX ``TrainState`` as a nested dict of numpy arrays (one dict per
+    NamedTuple, keyed by its fields) → the port's TrainState, moments and
+    step counter included. The JAX state's ``deform`` net is not carried:
+    the fine stage never renders through it."""
+    stats = {k: DensifyStats(**_tensors(fields[k], DensifyStats._fields, device))
+             for k in ("stat_stats", "dyn_stats")}
+    return TrainState(
+        stat=gaussian_state_from_numpy(fields["stat"], device),
+        dyn=gaussian_state_from_numpy(fields["dyn"], device),
+        sandwich=sandwich_from_numpy(fields["sandwich"], device),
+        blce=blce_from_numpy(fields["blce"], device),
+        stat_opt=adam_from_numpy(fields["stat_opt"], DIFF_FIELDS, device),
+        dyn_opt=adam_from_numpy(fields["dyn_opt"], DIFF_FIELDS, device),
+        sandwich_opt=adam_from_numpy(fields["sandwich_opt"],
+                                     SandwichParams._fields, device),
+        blce_opt=adam_from_numpy(fields["blce_opt"], BLCE_FIELDS, device),
+        step=int(np.asarray(fields["step"])), **stats)

@@ -11,6 +11,8 @@ over the module, as they are over the pytree there.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 from torch import nn
 
@@ -20,9 +22,26 @@ from mobgs_tpu_torch.core import knn, se3, sh, spline
 CONTROL_NUM = 12           # max spline knots (reference control_num)
 SPLINE_SCALE = 1e-2        # eval-time position scale (renderer :116)
 
-PARAM_FIELDS = ("xyz", "control_xyz", "features_dc", "features_rest",
-                "features_t", "scaling", "rotation", "opacity", "omega",
-                "motion", "zeta", "trbf_center", "trbf_scale")
+
+class DiffFields(NamedTuple):
+    """The float (Adam-optimized) fields of a GaussianState, in the JAX
+    package's order (``gaussians.py:61-76``)."""
+    xyz: torch.Tensor
+    control_xyz: torch.Tensor
+    features_dc: torch.Tensor
+    features_rest: torch.Tensor
+    features_t: torch.Tensor
+    scaling: torch.Tensor
+    rotation: torch.Tensor
+    opacity: torch.Tensor
+    omega: torch.Tensor
+    motion: torch.Tensor
+    zeta: torch.Tensor
+    trbf_center: torch.Tensor
+    trbf_scale: torch.Tensor
+
+
+DIFF_FIELDS = DiffFields._fields
 
 
 class GaussianState(nn.Module):
@@ -44,7 +63,7 @@ class GaussianState(nn.Module):
         missing = set(self._fields) - set(fields)
         if missing:
             raise ValueError(f"GaussianState missing fields {sorted(missing)}")
-        for name in PARAM_FIELDS:
+        for name in DIFF_FIELDS:
             self.register_parameter(
                 name, nn.Parameter(fields[name].to(torch.float32)))
         self.register_buffer("control_num",
@@ -57,6 +76,25 @@ class GaussianState(nn.Module):
 
     def num_live(self) -> torch.Tensor:
         return torch.sum(self.live.to(torch.int32))
+
+
+class AuxFields(NamedTuple):
+    control_num: torch.Tensor
+    live: torch.Tensor
+
+
+def split_diff(state: GaussianState) -> tuple[DiffFields, AuxFields]:
+    """(the module's Parameters as DiffFields, its buffers). The Parameters
+    are the state's own tensors: an optimizer step on them updates the
+    state."""
+    diff = DiffFields(*(getattr(state, f) for f in DIFF_FIELDS))
+    return diff, AuxFields(control_num=state.control_num, live=state.live)
+
+
+def merge_diff(diff: DiffFields, aux: AuxFields) -> GaussianState:
+    """A new GaussianState over the given tensors (storage shared)."""
+    return GaussianState(control_num=aux.control_num, live=aux.live,
+                         **diff._asdict())
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,270 @@
+"""The fine-stage training step (port of ``mobgs_tpu/train/step.py``), flow
+off.
+
+One step renders, per view of the camera batch, the E-1 latent sharp images
+at the BLCE-predicted poses (image only, ``want_depth=False,
+want_alpha=False``) and the mid render at the view's own camera with the
+dynamic-alpha chain fused in (``get_dynamic=True, subset_alpha_only=True``)
+and the ``means2d_offset`` gradient tap; the latent images and the mid image
+average into the synthetic blurry prediction. Loss (``step.py:361-372``):
+
+  photo = L1(pred, gt) + λ_dssim (1 − SSIM(pred, gt))
+  reg   = 0.2 L1(depth, gt_depth) + 1e-7 (entropy + sparsity)(dynamic alpha)
+
+Then the gradients of every Gaussian field, the Sandwich weights, the BLCE
+parameters (global-norm clipped to 1) and the offsets; densify statistics
+from the offsets' gradient scaled by (W/2, H/2); and Adam on each group.
+The views and exposures are Python loops; the compositing runs through the
+hand-written kernels for CUDA tensors (16 + 2 forward and 16 + 2 backward
+launches per step at B=2, E=9).
+
+The step updates the state in place (parameters and Adam moments) and
+returns it with new statistics and step count. The flow-warp loss
+(``lambda_flow_loss > 0``) comes with slice 3 of the port; asking for it
+raises.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from mobgs_tpu_torch.core import se3
+from mobgs_tpu_torch.core.image import psnr
+from mobgs_tpu_torch.data.cameras import Camera
+from mobgs_tpu_torch.models import blce as B
+from mobgs_tpu_torch.models import gaussians as G
+from mobgs_tpu_torch.models import render as R
+from mobgs_tpu_torch.models.sandwich import SandwichParams
+from mobgs_tpu_torch.ops.rasterize import RasterConfig
+from mobgs_tpu_torch.train import densify, losses
+from mobgs_tpu_torch.train.optim import (AdamState, adam_update, gaussian_lrs,
+                                         init_adam)
+
+
+class TrainState(NamedTuple):
+    stat: G.GaussianState
+    dyn: G.GaussianState
+    sandwich: SandwichParams
+    blce: B.BLCEState
+    stat_opt: AdamState
+    dyn_opt: AdamState
+    sandwich_opt: AdamState
+    blce_opt: AdamState
+    stat_stats: densify.DensifyStats
+    dyn_stats: densify.DensifyStats
+    step: int  # iterations taken
+
+
+class Batch(NamedTuple):
+    """One sampled camera batch (tensors stacked over B)."""
+    view_idx: torch.Tensor   # [B] int64
+    w2c: torch.Tensor        # [B, 4, 4]
+    K: torch.Tensor          # [B, 3, 3]
+    time: torch.Tensor       # [B]
+    image: torch.Tensor      # [B, H, W, 3] blurry GT
+    depth: torch.Tensor      # [B, H, W] prior depth
+    blur_feat: torch.Tensor  # [B] precomputed FFT blur features
+
+
+class Metrics(NamedTuple):
+    loss: torch.Tensor
+    photo: torch.Tensor
+    depth_l1: torch.Tensor
+    mask: torch.Tensor
+    flow: torch.Tensor
+    psnr: torch.Tensor
+    tile_max: torch.Tensor  # peak pre-clamp tile occupancy of the step
+
+
+def sandwich_leaves(sw: SandwichParams) -> tuple[torch.Tensor, ...]:
+    return tuple(getattr(sw, f) for f in SandwichParams._fields)
+
+
+def init_train_state(stat: G.GaussianState, dyn: G.GaussianState,
+                     sandwich: SandwichParams,
+                     blce_state: B.BLCEState) -> TrainState:
+    """Zero Adam moments and densify statistics, on the state's device."""
+    dev = stat.xyz.device
+    return TrainState(
+        stat=stat, dyn=dyn, sandwich=sandwich, blce=blce_state,
+        stat_opt=init_adam(G.split_diff(stat)[0]),
+        dyn_opt=init_adam(G.split_diff(dyn)[0]),
+        sandwich_opt=init_adam(sandwich_leaves(sandwich)),
+        blce_opt=init_adam(blce_state.params.leaves()),
+        stat_stats=densify.init_stats(stat.capacity, dev),
+        dyn_stats=densify.init_stats(dyn.capacity, dev),
+        step=0)
+
+
+def make_forward(opt_cfg, width: int, height: int, max_time: float,
+                 num_warp: int = 9, raster_cfg: RasterConfig = RasterConfig(),
+                 use_blce: bool = True, with_latents: bool = True,
+                 with_exposure_delta: bool = True):
+    """The differentiated core of the step (``step.py:124-380``) with flow
+    off: ``forward(stat, dyn, sandwich, blce, offsets, batch)`` returns
+    (total loss, aux).
+
+    Args:
+      use_blce: latent poses from BLCE; otherwise every latent render uses
+        the view's own camera and zero exposure shift.
+      with_latents: False before ``start_warp``: no latent renders, the
+        prediction is the mid render alone.
+      with_exposure_delta: False before ``start_warp_dynamic``: latent
+        renders keep the warped poses but no exposure time shift.
+    """
+    if opt_cfg.lambda_flow_loss > 0 and with_latents:
+        raise NotImplementedError(
+            "lambda_flow_loss > 0: the flow-warp loss comes with slice 3 of "
+            "the port; set lambda_flow_loss=0 for the flow-off step")
+    E = num_warp
+    half = E // 2
+    others = [e for e in range(E) if e != half]
+    lambda_dssim = opt_cfg.lambda_dssim
+
+    def forward(stat, dyn, sandwich, blce_state, offsets, batch: Batch):
+        dev = stat.xyz.device
+        bg3 = torch.zeros(3, dtype=torch.float32, device=dev)
+        preds, depths, d_alphas, radii, tile_maxes = [], [], [], [], []
+        for b in range(batch.view_idx.shape[0]):
+            w2c, K, time = batch.w2c[b], batch.K[b], batch.time[b]
+            cam = Camera(w2c=w2c, K=K, time=time)
+            lat_imgs = []
+            if with_latents:
+                if use_blce:
+                    lat_c2w, expo = B.latent_poses(
+                        blce_state, se3.view_to_world(w2c), batch.blur_feat[b],
+                        batch.view_idx[b], E)
+                    lat_w2c = se3.view_to_world(lat_c2w)
+                else:
+                    lat_w2c = w2c.expand(E, 4, 4)
+                    expo = torch.zeros(E, dtype=torch.float32, device=dev)
+                # latent renders, image only (train.py:502-541)
+                for e in others:
+                    lat = R.render_view(
+                        stat, dyn, sandwich, Camera(w2c=lat_w2c[e], K=K, time=time),
+                        width, height, bg3, max_time,
+                        expo[e] if with_exposure_delta else None,
+                        want_depth=False, want_alpha=False, config=raster_cfg)
+                    lat_imgs.append(lat.image)
+                    tile_maxes.append(torch.as_tensor(lat.tile_max))
+            # mid render at the view's camera (train.py:441-469)
+            mid = R.render_view(stat, dyn, sandwich, cam, width, height, bg3,
+                                max_time, None, get_static=False,
+                                get_dynamic=True, means2d_offset=offsets[b],
+                                subset_alpha_only=True, config=raster_cfg)
+            tile_maxes.append(torch.as_tensor(mid.tile_max))
+            if with_latents:
+                preds.append((torch.stack(lat_imgs).sum(0) + mid.image) / E
+                             + 1e-10)
+            else:
+                preds.append(mid.image)
+            depths.append(mid.depth)
+            d_alphas.append(mid.d_alpha)
+            radii.append(mid.radii)
+
+        pred = torch.stack(preds).permute(0, 3, 1, 2)     # [B, 3, H, W]
+        gt = batch.image.permute(0, 3, 1, 2)
+        l1 = losses.l1_loss(pred, gt)
+        ssim_v = losses.ssim_loss_term(pred, gt) if lambda_dssim else 0.0
+        photo = l1 + lambda_dssim * (1.0 - ssim_v)
+        depth_l1 = losses.l1_loss(torch.stack(depths), batch.depth)
+        d_alpha = torch.stack(d_alphas)
+        mask_l = 1e-7 * (losses.entropy_loss(d_alpha)
+                         + losses.sparsity_loss(d_alpha))
+        total = photo + 0.2 * depth_l1 + mask_l
+        psnr_v = torch.mean(psnr(pred.detach(), gt))
+        aux = dict(radii=torch.stack(radii), photo=photo, depth_l1=depth_l1,
+                   mask=mask_l, flow=torch.zeros((), device=dev), psnr=psnr_v,
+                   tile_max=torch.stack(tile_maxes).amax())
+        return total, aux
+
+    return forward
+
+
+def make_train_step(opt_cfg, width: int, height: int, max_time: float,
+                    num_warp: int = 9,
+                    raster_cfg: RasterConfig = RasterConfig(),
+                    spatial_lr_scale: float = 5.0, use_blce: bool = True,
+                    with_latents: bool = True,
+                    with_exposure_delta: bool = True):
+    """Build the per-iteration update ``train_step(ts, batch) -> (ts,
+    Metrics)`` (``step.py:383-474``), flow off. It runs on the device the
+    state lives on."""
+    forward = make_forward(opt_cfg, width, height, max_time, num_warp,
+                           raster_cfg, use_blce, with_latents,
+                           with_exposure_delta)
+
+    def train_step(ts: TrainState, batch: Batch):
+        stat_p, _ = G.split_diff(ts.stat)
+        dyn_p, _ = G.split_diff(ts.dyn)
+        sand_p = sandwich_leaves(ts.sandwich)
+        blce_p = ts.blce.params.leaves()
+        dev = ts.stat.xyz.device
+        Ms = ts.stat.capacity
+        Ntot = Ms + ts.dyn.capacity
+        offsets = torch.zeros((batch.view_idx.shape[0], Ntot, 2),
+                              dtype=torch.float32, device=dev,
+                              requires_grad=True)
+        groups = (stat_p, dyn_p, sand_p, blce_p, (offsets,))
+        leaves = [p for grp in groups for p in grp]
+        with torch.enable_grad():
+            for p in leaves:
+                p.requires_grad_(True)
+            total, aux = forward(ts.stat, ts.dyn, ts.sandwich, ts.blce,
+                                 offsets, batch)
+            grads = torch.autograd.grad(total, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
+        split, i = [], 0
+        for grp in groups:
+            split.append(grads[i:i + len(grp)])
+            i += len(grp)
+        g_stat, g_dyn, g_sand, g_blce, (g_off,) = split
+
+        with torch.no_grad():
+            # densification stats from the view-space gradient
+            # (train.py:633-648), accumulated over the batch
+            vs_grad = g_off.sum(0) * torch.tensor(
+                [width * 0.5, height * 0.5], dtype=torch.float32, device=dev)
+            radii = aux["radii"]                          # [B, Ntot]
+            radii_max = radii.amax(0)
+            visible = (radii > 0).any(0)
+            stat_stats = densify.add_stats(ts.stat_stats, vs_grad[:Ms],
+                                           radii_max[:Ms], visible[:Ms])
+            dyn_stats = densify.add_stats(ts.dyn_stats, vs_grad[Ms:],
+                                          radii_max[Ms:], visible[Ms:])
+
+            step = ts.step + 1
+            lrs = gaussian_lrs(opt_cfg, step, spatial_lr_scale)
+            stat_opt = adam_update(stat_p, g_stat, ts.stat_opt, lrs)
+            dyn_opt = adam_update(dyn_p, g_dyn, ts.dyn_opt, lrs)
+            sand_opt = adam_update(sand_p, g_sand, ts.sandwich_opt,
+                                   [opt_cfg.rgb_lr] * len(sand_p))
+            # BLCE: global-norm clip (the SE(3) exp-map's 1/|w| factors
+            # amplify pose gradients where the decoded axis passes near
+            # zero), lr 1e-4 decayed by 0.01^(step/iterations)
+            gnorm = torch.sqrt(torch.stack([torch.sum(g * g) for g in g_blce]).sum()
+                               + 1e-20)
+            scale = torch.where(torch.isfinite(gnorm),
+                                torch.clamp(1.0 / gnorm, max=1.0),
+                                torch.zeros_like(gnorm))
+            g_blce = [g * scale for g in g_blce]
+            blce_lr = float(np.float32(1e-4) * np.float32(0.01) ** (
+                np.float32(step) / np.float32(opt_cfg.iterations)))
+            blce_opt = adam_update(blce_p, g_blce, ts.blce_opt,
+                                   [blce_lr] * len(blce_p))
+
+        new_ts = ts._replace(stat_opt=stat_opt, dyn_opt=dyn_opt,
+                             sandwich_opt=sand_opt, blce_opt=blce_opt,
+                             stat_stats=stat_stats, dyn_stats=dyn_stats,
+                             step=step)
+        metrics = Metrics(loss=total.detach(), photo=aux["photo"].detach(),
+                          depth_l1=aux["depth_l1"].detach(),
+                          mask=aux["mask"].detach(), flow=aux["flow"],
+                          psnr=aux["psnr"], tile_max=aux["tile_max"])
+        return new_ts, metrics
+
+    return train_step

@@ -5,9 +5,16 @@ port is installed. Every test is marked ``gpu`` and skips without a CUDA
 card (decided inside the test). Run on the card with
 ``python -m pytest tests/test_torch_gpu.py -m gpu``.
 
-Tolerance: image and alpha atol 1e-4, depth rtol 1e-3 where α > 1e-3 —
-the kernel sums in another order than the plain version (serial walk vs
-cumprod and batched matmul) and contracts the sums into FMAs.
+Tolerances: forward image and alpha atol 1e-4, depth rtol 1e-3 where
+α > 1e-3 — the kernel sums in another order than the plain version (serial
+walk vs cumprod and batched matmul) and contracts the sums into FMAs.
+Backward, each gradient column within BWD_REL of its largest magnitude:
+the kernel's per-pixel running sums, its warp reductions and its atomics
+(whose order changes from run to run) sum in other orders than cumsum and
+index_add_, and the suffix-anchor subtraction amplifies that by up to
+1/(1 − α) ≤ 100. The train step's gradients through the kernels vs the
+plain route: the same, per leaf, STEP_REL, looser for BLCE's pose leaves,
+where the exp-map's 1/|w| axis normalisation multiplies the differences.
 """
 
 import numpy as np
@@ -17,13 +24,18 @@ import torch
 from mobgs_tpu_torch.data.cameras import Camera
 from mobgs_tpu_torch.models import gaussians as G
 from mobgs_tpu_torch.models import render as R
+from mobgs_tpu_torch.config import OptimizationParams
+from mobgs_tpu_torch.models import blce as B
 from mobgs_tpu_torch.models.sandwich import init_sandwich
 from mobgs_tpu_torch.ops import cuda_raster, projection, tiles
 from mobgs_tpu_torch.ops.rasterize import RasterConfig
+from mobgs_tpu_torch.train import step as S
 
 W, H = 64, 48
 KMAT = np.array([[60.0, 0, W / 2], [0, 60.0, H / 2], [0, 0, 1]], np.float32)
 ATOL = 1e-4
+BWD_REL = 1e-4   # measured at most 1.2e-6 at the protocol view (chip_smoke.py)
+STEP_REL = 1e-3  # measured at most 6e-7 per leaf at protocol shape
 CASES = ("default", "sub", "alpha_only", "image_only", "wide_ce29")
 
 
@@ -130,3 +142,112 @@ def test_render_view_on_card_matches_cpu(cuda):
         np.testing.assert_allclose(getattr(on_card, field).cpu().numpy(),
                                    getattr(on_cpu, field).numpy(), atol=ATOL,
                                    err_msg=field)
+
+
+def _rel_err(k, p):
+    return float((k - p).abs().max()) / max(float(p.abs().max()), 1e-30)
+
+
+BWD_CASES = {"image_only_ce9": (9, False, False), "sub_ce11": (9, True, True),
+             "alpha_only_ce2": (0, True, False), "wide_sub_ce29": (27, True, True)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(BWD_CASES))
+def test_backward_kernel_matches_plain_on_card(case, cuda):
+    C, ext, sub = BWD_CASES[case]
+    bins, splats, opac, kw = _inputs("sub", cuda, seed=1)
+    n = opac.shape[0]
+    rng = np.random.default_rng(2)
+    cols = [torch.as_tensor(rng.uniform(size=(n, C)).astype(np.float32), device=cuda)]
+    if ext:
+        cols += [splats.depths[:, None], torch.ones(n, 1, device=cuda)]
+    col = torch.cat(cols, 1).contiguous()
+    rec = cuda_raster.pack_records(splats, opac, kw["sub_opacities"] if sub else None)
+    ids, cnt, ntx = bins.gauss_ids.contiguous(), bins.counts.contiguous(), bins.n_tiles_x
+    with torch.no_grad():
+        out, out2 = cuda_raster.composite_fwd(ids, cnt, rec, col, ntx, sub)
+    g = torch.as_tensor(rng.normal(size=out.shape).astype(np.float32), device=cuda)
+    g2 = (torch.as_tensor(rng.normal(size=out2.shape).astype(np.float32), device=cuda)
+          if sub else None)
+    name = "raster_bwd_sub" if sub else "raster_bwd"
+    before = cuda_raster.launches[name]
+    k = cuda_raster.composite_bwd(ids, cnt, rec, col, out, out2, g, g2, ntx, sub)
+    p = cuda_raster.composite_bwd_plain(ids, cnt, rec, col, out, out2, g, g2, ntx, sub)
+    torch.cuda.synchronize()
+    assert cuda_raster.launches[name] == before + 1
+    n_rows = 7 if sub else 6
+    for j in range(n_rows):
+        assert float(p[0][:, j].abs().max()) > 0, j
+        assert _rel_err(k[0][:, j], p[0][:, j]) <= BWD_REL, j
+    assert not k[0][:, n_rows:].any()
+    assert _rel_err(k[1], p[1]) <= BWD_REL
+
+
+def _small_train_state(dev, seed=0):
+    rng = np.random.default_rng(seed)
+    pts = rng.normal(size=(260, 3)).astype(np.float32)
+    pts[:, 2] = pts[:, 2] * 0.5 + 6.0
+    cols = rng.uniform(size=(260, 3)).astype(np.float32)
+    tt = np.linspace(0, 1, 6).astype(np.float32)
+    traj = pts[:60, None] + rng.normal(size=(60, 1, 3)).astype(np.float32) \
+        * 0.3 * tt[None, :, None]
+    stat = G.create_state(pts[60:], cols[60:], np.zeros(200, np.float32), 256,
+                          generator=torch.Generator(device=dev).manual_seed(0),
+                          device=dev)
+    dyn = G.create_state(pts[:60], cols[:60], np.zeros(60, np.float32), 64,
+                         trajectory=torch.as_tensor(traj),
+                         traj_times=torch.as_tensor(tt), device=dev)
+    sw = init_sandwich(torch.Generator(device=dev).manual_seed(1), device=dev)
+    blce = B.init_blce(torch.Generator(device=dev).manual_seed(2), num_views=6,
+                       num_warp=3, device=dev)
+    to = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)  # noqa: E731
+    batch = S.Batch(view_idx=torch.tensor([1, 4], device=dev),
+                    w2c=to(np.tile(np.eye(4), (2, 1, 1))), K=to(np.stack([KMAT] * 2)),
+                    time=to([0.2, 0.8]), image=to(rng.uniform(size=(2, H, W, 3))),
+                    depth=to(rng.uniform(4, 8, size=(2, H, W))),
+                    blur_feat=to([0.3, 0.5]))
+    return S.init_train_state(stat, dyn, sw, blce), batch
+
+
+@pytest.mark.gpu
+def test_train_step_kernels_match_plain_on_card(cuda):
+    """One flow-off step's loss and gradients (B=2, E=3) through the
+    kernels and through the plain route, from the same state and batch."""
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # the SSIM convolution in full f32
+    try:
+        _step_kernels_vs_plain(cuda)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+def _step_kernels_vs_plain(cuda):
+    ts, batch = _small_train_state(cuda)
+    opt = OptimizationParams(iterations=100, lambda_flow_loss=0.0)
+    cfg = RasterConfig(max_per_tile=256)
+    leaves = [*G.split_diff(ts.stat)[0], *G.split_diff(ts.dyn)[0],
+              *S.sandwich_leaves(ts.sandwich), *ts.blce.params.leaves()]
+    res = {}
+    for backend in ("cuda", "plain"):
+        fwd = S.make_forward(opt, W, H, 1.0, 3, cfg._replace(backend=backend))
+        off = torch.zeros((2, 320, 2), device=cuda, requires_grad=True)
+        total, _ = fwd(ts.stat, ts.dyn, ts.sandwich, ts.blce, off, batch)
+        res[backend] = (float(total.detach()), torch.autograd.grad(
+            total, leaves + [off], allow_unused=True))
+    np.testing.assert_allclose(res["cuda"][0], res["plain"][0], rtol=1e-5)
+    n_checked = 0
+    for k, p in zip(res["cuda"][1], res["plain"][1]):
+        if p is None or not p.any():
+            assert k is None or not k.any()
+            continue
+        n_checked += 1
+        assert _rel_err(k, p) <= STEP_REL
+    assert n_checked > 20
+    before = dict(cuda_raster.launches)
+    ts, m = S.make_train_step(opt, W, H, 1.0, 3, cfg)(ts, batch)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(m.loss)) and ts.step == 1
+    # per view: 2 latent renders and the mid render with the sub chain
+    assert {k: cuda_raster.launches[k] - before[k] for k in before} == {
+        "raster_fwd": 4, "raster_fwd_sub": 2, "raster_bwd": 4, "raster_bwd_sub": 2}

@@ -248,8 +248,36 @@ def test_validate_max_per_tile_matches_jax():
     assert got == want and got > 64
 
 
-def test_backward_raises_on_kernel_path():
-    """The kernel has no backward yet: its autograd Function raises
-    instead of returning a wrong gradient."""
-    with pytest.raises(NotImplementedError, match="next slice"):
-        cuda_raster._CompositeFwd.backward(None, torch.zeros(1))
+def test_compositor_autograd_routes(scene):
+    """CPU tensors take the plain route both ways: the forward is
+    ``composite_tiles_plain``'s and the backward ``composite_bwd_plain``'s,
+    not autograd through the plain forward's ops; the kernels' Function
+    refuses CPU tensors instead of falling back."""
+    ps, pb = scene["ps"], scene["pb"]
+    rec = cuda_raster.pack_records(ps, t(scene["opac"]),
+                                   t(scene["opac"] * scene["sub"]))
+    col = torch.cat([t(scene["colors"]), ps.depths[:, None],
+                     torch.ones(rec.shape[0], 1)], 1).contiguous()
+    ids, counts = pb.gauss_ids.to(torch.int32), pb.counts.to(torch.int32)
+    ntx = pb.n_tiles_x
+    rec.requires_grad_(True)
+    col.requires_grad_(True)
+    out, out2 = cuda_raster.composite_fwd(ids, counts, rec, col, ntx, sub=True)
+    assert type(out.grad_fn).__name__ == "_CompositePlainBackward"
+    want = cuda_raster.composite_tiles_plain(ids, counts, rec.detach(),
+                                             col.detach(), ntx, sub=True)
+    assert torch.equal(out, want[0]) and torch.equal(out2, want[1])
+    rng = np.random.default_rng(9)
+    g = t(rng.normal(size=out.shape).astype(np.float32))
+    g2 = t(rng.normal(size=out2.shape).astype(np.float32))
+    got = torch.autograd.grad(torch.sum(out * g) + torch.sum(out2 * g2), (rec, col))
+    ref = cuda_raster.composite_bwd_plain(ids, counts, rec.detach(), col.detach(),
+                                          out.detach(), out2.detach(), g, g2, ntx,
+                                          sub=True)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert got[0][:, 6].abs().max() > 0  # the sub chain's opacity column
+    with pytest.raises(ValueError, match="not CUDA"):
+        cuda_raster._CompositeCuda.apply(ids, counts, rec, col, ntx, False)
+    with pytest.raises(ValueError, match="not CUDA"):
+        cuda_raster._launch_bwd(ids, counts, rec.detach(), col.detach(),
+                                out.detach(), out2.detach(), g, g2, ntx, True)
