@@ -10,7 +10,10 @@ scene made from a seed and random Sandwich and BLCE weights:
 1. the card's name and power limit, torch and CUDA versions;
 2. build the forward and backward compositor kernels from
    ``mobgs_tpu_torch/csrc`` (one nvcc each, started together) and print
-   ``-Xptxas -v``'s registers, shared memory and spills;
+   ``-Xptxas -v``'s registers, shared memory and spills; for each backward
+   instance the main path and phase 7 launch, the registers, shared memory,
+   spills and resident blocks per SM that the CUDA occupancy API gives, and
+   the waves that 576 tiles take (an instance that spills fails the run);
 3. build the scene on the card (the generator's ground-truth renders
    already run through the kernel);
 4. hold the forward kernel against its plain PyTorch version on one
@@ -24,8 +27,9 @@ scene made from a seed and random Sandwich and BLCE weights:
    launch counts of phases 5-6 (the serving path); trace a render;
 7. hold the backward kernel against its plain version on the protocol
    view: (a) CE=9 image-only (latent render), (b) CE=11 with the sub chain
-   (mid render), (c) CE=2 alpha-only, upstream gradients from a seeded
-   numpy generator;
+   (mid render), (c) CE=2 alpha-only, (d) CE=29 with the sub chain (the
+   flow-on mid render's width: 9 + 2·9 flow columns + depth + weight),
+   upstream gradients from a seeded numpy generator;
 8. one train step's loss and gradients through the kernels against the
    plain route (``RasterConfig(backend="plain")``), same state and batch;
 9. train: 3 warm-up and 20 timed flow-off steps through
@@ -82,6 +86,10 @@ PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 SOURCES = {"raster_fwd": "mobgs_tpu_torch/csrc/raster_fwd.cu",
            "raster_bwd": "mobgs_tpu_torch/csrc/raster_bwd.cu"}
+# the backward instances (CE, sub chain) launched at protocol shape: latent
+# render, mid render, alpha-only, flow-on mid render
+BWD_INSTANCES = ((9, False), (11, True), (2, False), (29, True))
+PROTOCOL_TILES = 576
 REPLACES = {"raster_fwd": "mobgs_tpu/ops/pallas_raster.py:118",
             "raster_fwd_sub": "mobgs_tpu/ops/pallas_raster.py:151",
             "raster_bwd": "mobgs_tpu/ops/pallas_raster.py:203",
@@ -139,17 +147,40 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(stop) / iters
 
 
+def protocol_scene(dev):
+    """The seesaw-scale synthetic scene at the protocol shape, made from
+    seeds: (raster config, generator data, the point clouds the states are
+    seeded from, static state, dynamic state)."""
+    from mobgs_tpu_torch.data import synthetic
+    from mobgs_tpu_torch.models import gaussians as G
+    from mobgs_tpu_torch.ops.rasterize import RasterConfig
+
+    cfg = RasterConfig(tiles_per_gauss=9, max_per_tile=256, tile_chunk=36)
+    data, traj = synthetic.generate(width=W, height=H, num_frames=FRAMES,
+                                    n_static=2000, n_dyn=400, blur_substeps=3,
+                                    raster_cfg=cfg, device=dev)
+    s_pts, s_cols, d_traj = synthetic.init_point_clouds(data, traj, N_STAT, N_DYN)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stat = G.create_state(s_pts, s_cols, np.zeros(len(s_pts), np.float32),
+                          capacity=len(s_pts) * CAP_MULT, generator=gen,
+                          device=dev)
+    dyn = G.create_state(d_traj[:, 0], np.full((len(d_traj), 3), 0.5, np.float32),
+                         np.zeros(len(d_traj), np.float32),
+                         capacity=len(d_traj) * CAP_MULT,
+                         trajectory=torch.as_tensor(d_traj),
+                         traj_times=torch.as_tensor(data.time), device=dev)
+    return cfg, data, (s_pts, s_cols, d_traj), stat, dyn
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
-    from mobgs_tpu_torch.data import synthetic
     from mobgs_tpu_torch.data.cameras import Camera
     from mobgs_tpu_torch.models import gaussians as G
     from mobgs_tpu_torch.models import render as R
     from mobgs_tpu_torch.models.sandwich import init_sandwich
     from mobgs_tpu_torch.ops import cuda_raster, tiles
-    from mobgs_tpu_torch.ops.rasterize import RasterConfig
     from mobgs_tpu_torch.viewer import ViewerServer, make_viewer_render
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -175,26 +206,23 @@ def main():
         for line in log.splitlines():
             if any(k in line for k in ("Compiling entry", "registers", "spill")):
                 print(f"  ptxas {name}:", line.split("info    :")[-1].strip())
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for ce, sub in BWD_INSTANCES:
+        occ = cuda_raster.bwd_occupancy(ce, 256, sub, dev)
+        waves = -(-PROTOCOL_TILES // max(occ["blocks_per_sm"] * n_sm, 1))
+        print(f"  raster_bwd CE={ce} sub={sub}: {occ['registers']} registers, "
+              f"{occ['smem_bytes']} B shared, {occ['local_bytes']} B local, "
+              f"{occ['blocks_per_sm']} blocks/SM on {n_sm} SMs, "
+              f"{waves} wave(s) at {PROTOCOL_TILES} tiles")
+        require(occ["blocks_per_sm"] > 0, f"raster_bwd CE={ce} sub={sub} cannot launch")
+        require(occ["local_bytes"] == 0, f"raster_bwd CE={ce} sub={sub} spills")
 
     phase("3 scene")
     t0 = time.time()
-    cfg = RasterConfig(tiles_per_gauss=9, max_per_tile=256, tile_chunk=36)
-    data, traj = synthetic.generate(width=W, height=H, num_frames=FRAMES,
-                                    n_static=2000, n_dyn=400, blur_substeps=3,
-                                    raster_cfg=cfg, device=dev)
+    cfg, data, (s_pts, s_cols, d_traj), stat, dyn = protocol_scene(dev)
     require(np.isfinite(data.images).all() and data.images.shape == (FRAMES, H, W, 3),
             "generator images")
     require(0.0 < data.masks.mean() < 0.5, f"dynamic mask share {data.masks.mean()}")
-    s_pts, s_cols, d_traj = synthetic.init_point_clouds(data, traj, N_STAT, N_DYN)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    stat = G.create_state(s_pts, s_cols, np.zeros(len(s_pts), np.float32),
-                          capacity=len(s_pts) * CAP_MULT, generator=gen,
-                          device=dev)
-    dyn = G.create_state(d_traj[:, 0], np.full((len(d_traj), 3), 0.5, np.float32),
-                         np.zeros(len(d_traj), np.float32),
-                         capacity=len(d_traj) * CAP_MULT,
-                         trajectory=torch.as_tensor(d_traj),
-                         traj_times=torch.as_tensor(data.time), device=dev)
     sandwich = init_sandwich(torch.Generator(device=dev).manual_seed(1), device=dev)
     for m in (stat, dyn, sandwich):
         m.requires_grad_(False)
@@ -384,6 +412,10 @@ def main():
         "a_latent_ce9": (geom.colors, False),
         "b_mid_ce11_sub": (torch.cat([geom.colors, splats.depths[:, None], ones], 1), True),
         "c_alpha_only_ce2": (torch.cat([splats.depths[:, None], ones], 1), False),
+        "d_flow_mid_ce29_sub": (torch.cat([
+            geom.colors,
+            torch.as_tensor(rng.normal(size=(N, 2 * E_WARP)).astype(np.float32), device=dev),
+            splats.depths[:, None], ones], 1), True),
     }
     bwd_inputs, bwd_errs = {}, {}
     rec_names = ("mx", "my", "conic_a", "conic_b", "conic_c", "opacity", "sub_opacity")

@@ -22,12 +22,15 @@ What bounds them on an H100. Per (slot, pixel) pair the forward does about
 that plus the reduction over pixels, and per chunk they read ``(7 + CE)·4``
 bytes per slot; at the seesaw protocol shape (576 tiles, K=256, CE=11) the
 operations outweigh the bytes by far, so the bound is the card's float32
-rate. The design keeps every per-pair value in registers (one thread per
-pixel, CE sums in a register array) and reads each chunk's records once per
-tile, gathered by ``gauss_id`` straight into shared memory: no
-``[T, NC, R+CE]`` record table in device memory, which is what
-``_gather_records`` (``pallas_raster.py:398-428``) builds for the TPU's
-block specs. No tensor cores, TMA or pipelining yet.
+rate. Both read each chunk's records once per tile, gathered by
+``gauss_id`` straight into shared memory: no ``[T, NC, R+CE]`` record
+table in device memory, which is what ``_gather_records``
+(``pallas_raster.py:398-428``) builds for the TPU's block specs. The
+forward keeps its per-pixel sums in registers (one thread per pixel). The
+backward replays a few slots at a time per pixel into shared memory, then
+sums each slot over the tile's pixels with one atomic per slot and term
+(``raster_bwd.cu``'s note; :func:`bwd_occupancy` reports its resident
+blocks). No tensor cores, TMA or pipelining yet.
 
 The plain versions (:func:`composite_tiles_plain`,
 :func:`composite_bwd_plain`) keep the Pallas semantics exactly — chunks of
@@ -70,8 +73,7 @@ launches = {"raster_fwd": 0, "raster_fwd_sub": 0,
             "raster_bwd": 0, "raster_bwd_sub": 0}
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = {"raster_fwd": CSRC / "raster_fwd.cu", "raster_bwd": CSRC / "raster_bwd.cu"}
-HEADERS = (CSRC / "raster_common.cuh",)
+KERNELS = ("raster_fwd", "raster_bwd")  # csrc/<name>.cu, entry point <name>
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -101,16 +103,22 @@ def _nvcc() -> str:
     return found
 
 
+def _source(name: str) -> Path:
+    return CSRC / f"{name}.cu"
+
+
 def _library_path(name: str) -> Path:
     """``build/kernels/lib<name>_<hash>.so``, the hash taken over the source,
-    the shared header and the flags, so an edited source is rebuilt and an
-    unchanged one reused."""
-    blob = SOURCES[name].read_bytes() + b"".join(h.read_bytes() for h in HEADERS)
-    digest = hashlib.sha1(blob + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    every header of ``csrc/`` (names and contents) and the flags, so an
+    edited source or header is rebuilt and an unchanged one reused."""
+    sha = hashlib.sha1(_source(name).read_bytes())
+    for h in sorted(CSRC.glob("*.cuh")):
+        sha.update(h.name.encode() + b"\0" + h.read_bytes())
+    sha.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{sha.hexdigest()[:12]}.so"
 
 
-def build_kernels(names=tuple(SOURCES)) -> dict[str, tuple[Path, str]]:
+def build_kernels(names=KERNELS) -> dict[str, tuple[Path, str]]:
     """Compile ``csrc/<name>.cu`` for sm_90a into ``build/kernels/``, one
     ``nvcc`` per library, all started together.
 
@@ -124,7 +132,7 @@ def build_kernels(names=tuple(SOURCES)) -> dict[str, tuple[Path, str]]:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         procs[name] = (so, tmp, subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_source(name))],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []
     for name, (so, tmp, proc) in procs.items():
@@ -153,6 +161,9 @@ def _library(name: str) -> ctypes.CDLL:
         n_ptr = 6 if name == "raster_fwd" else 10
         fn.argtypes = [vp] * n_ptr + [ci] * 6 + [vp]
         fn.restype = ci
+        if name == "raster_bwd":
+            lib.raster_bwd_occupancy.argtypes = [ci, ci, ci, vp]
+            lib.raster_bwd_occupancy.restype = ci
         _libs[name] = lib
     return _libs[name]
 
@@ -237,6 +248,22 @@ def _launch_bwd(ids, counts, rec, col, out, out2, g, g2, ntx: int, sub: bool):
         raise RuntimeError(f"raster_bwd launch failed: CUDA error {err}")
     launches["raster_bwd_sub" if sub else "raster_bwd"] += 1
     return grad_rec, grad_col
+
+
+def bwd_occupancy(CE: int, K: int, sub: bool, device=None) -> dict[str, int]:
+    """What the card gives the backward kernel instance that a launch with
+    CE channels and max_per_tile K takes: resident ``blocks_per_sm``,
+    ``smem_bytes`` per block, ``registers`` per thread and ``local_bytes``
+    per thread (spills), from the CUDA occupancy API."""
+    info = (ctypes.c_int * 4)()
+    lib = _library("raster_bwd")
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        err = lib.raster_bwd_occupancy(CE, _pick_chunk(K), int(sub),
+                                       ctypes.addressof(info))
+    if err != 0:
+        raise RuntimeError(f"raster_bwd_occupancy failed: CUDA error {err}")
+    return dict(zip(("blocks_per_sm", "smem_bytes", "registers", "local_bytes"),
+                    info))
 
 
 class _CompositeCuda(torch.autograd.Function):

@@ -33,6 +33,7 @@ from mobgs_tpu_torch.train import step as S
 
 W, H = 64, 48
 KMAT = np.array([[60.0, 0, W / 2], [0, 60.0, H / 2], [0, 0, 1]], np.float32)
+TILE_PX = 16
 ATOL = 1e-4
 BWD_REL = 1e-4   # measured at most 1.2e-6 at the protocol view (chip_smoke.py)
 STEP_REL = 1e-3  # measured at most 6e-7 per leaf at protocol shape
@@ -148,32 +149,115 @@ def _rel_err(k, p):
     return float((k - p).abs().max()) / max(float(p.abs().max()), 1e-30)
 
 
-BWD_CASES = {"image_only_ce9": (9, False, False), "sub_ce11": (9, True, True),
-             "alpha_only_ce2": (0, True, False), "wide_sub_ce29": (27, True, True)}
+# name: (random colour columns, + depth and ones columns, sub chain, scene).
+# "binned" is a projected and binned scene; the others are tile lists
+# written out (_edge_operands) for the kernel's edges.
+BWD_CASES = {"image_only_ce9": (9, False, False, "binned"),
+             "sub_ce11": (9, True, True, "binned"),
+             "alpha_only_ce2": (0, True, False, "binned"),
+             "wide_sub_ce29": (27, True, True, "binned"),
+             "ragged_counts_ce9": (9, False, False, "ragged"),
+             "ragged_counts_sub_ce11": (9, True, True, "ragged"),
+             "k64_ce11": (9, True, False, "k64"),
+             "k64_sub_ce2": (0, True, True, "k64"),
+             "early_exit_sub_ce11": (9, True, True, "saturating"),
+             "early_exit_ce9": (9, False, False, "saturating"),
+             "wide_gauss_ce9": (9, False, False, "wide_gauss"),
+             "wide_gauss_sub_ce29": (27, True, True, "wide_gauss")}
+
+
+def _edge_operands(scene, C, ext, sub, dev):
+    """Tile lists over a 5x4-tile image, written out to reach the kernel's
+    edges: "ragged" counts (0, 1, and counts that are no multiple of the
+    sub-chunk or the chunk), "k64" (K=64, chunk 64), "saturating" (K=256:
+    in the left three tile columns 128 wide faint splats take every
+    pixel's transmittance under 1e-4 in both chains, so those tiles stop
+    after their first chunk of a full list; the other tiles' lists are
+    ordinary, so each gradient column's scale comes from well-conditioned
+    sums: a saturated chain's opacity gradient is T_final-sized, the
+    difference of terms of size 1) and
+    "wide_gauss" (Gaussian 0 covers the image and sits in every tile's
+    list: every block adds into its row). Returns ids, counts, rec, col,
+    ntx."""
+    rng = np.random.default_rng(3)
+    ntx, nty, n = 5, 4, 400
+    T = ntx * nty
+    K = {"k64": 64, "saturating": 256}.get(scene, 128)
+    m2d = rng.uniform((0, 0), (TILE_PX * ntx, TILE_PX * nty), size=(n, 2))
+    sd = rng.uniform(1.0, 6.0, size=(n, 2))
+    th = rng.uniform(0, np.pi, n)
+    cs, sn = np.cos(th), np.sin(th)
+    conic = np.stack([cs ** 2 / sd[:, 0] ** 2 + sn ** 2 / sd[:, 1] ** 2,
+                      cs * sn * (1 / sd[:, 0] ** 2 - 1 / sd[:, 1] ** 2),
+                      sn ** 2 / sd[:, 0] ** 2 + cs ** 2 / sd[:, 1] ** 2], 1)
+    op = rng.uniform(0.2, 0.95, n)
+    ids = np.stack([rng.permutation(n)[:K] for _ in range(T)])
+    if scene == "ragged":
+        counts = np.array([0, 37, 1, 128, 100, 65, 3, 127, 13, 90] * 2)
+    elif scene == "k64":
+        counts = rng.integers(0, K + 1, T)
+        counts[:3] = (0, 64, 37)
+    elif scene == "wide_gauss":
+        counts = rng.integers(20, K + 1, T)
+        m2d[0], conic[0], op[0] = (40.0, 32.0), (1e-4, 0.0, 1e-4), 0.6
+        ids = np.stack([rng.permutation(np.arange(1, n))[:K] for _ in range(T)])
+        ids[np.arange(T), rng.integers(0, counts)] = 0
+    else:  # saturating: the left three tile columns
+        sat = np.arange(T) % ntx < 3
+        counts = np.where(sat, K, rng.integers(60, 129, T))
+        m2d[:128], conic[:128], op[:128] = (40.0, 32.0), (1e-6, 0.0, 1e-6), 0.0781
+        ids = np.stack([np.concatenate([rng.permutation(128), 128 + rng.permutation(n - 128)[:128]])
+                        if sat[t] else 128 + rng.permutation(n - 128)[:K] for t in range(T)])
+    sub_op = op * (np.arange(n) % 3 == 0)
+    if scene == "saturating":
+        sub_op[:128] = op[:128]
+    depth = rng.uniform(2.0, 8.0, n)
+    rec = np.zeros((n, cuda_raster.R), np.float32)
+    rec[:, :2], rec[:, 2:5], rec[:, 5] = m2d, conic, op
+    if sub:
+        rec[:, 6] = sub_op
+    cols = [rng.uniform(size=(n, C))]
+    if ext:
+        cols += [depth[:, None], np.ones((n, 1))]
+    to = lambda x, dt=torch.float32: torch.as_tensor(  # noqa: E731
+        np.ascontiguousarray(x), dtype=dt, device=dev)
+    return (to(ids, torch.int32), to(counts, torch.int32), to(rec),
+            to(np.concatenate(cols, 1)), ntx)
+
+
+def _bwd_args(case, dev):
+    """(ids, counts, rec, col, out, out2, g, g2, ntx, sub) of a case, with
+    the forward kernel's outputs and seeded upstream gradients."""
+    C, ext, sub, scene = BWD_CASES[case]
+    rng = np.random.default_rng(2)
+    if scene == "binned":
+        bins, splats, opac, kw = _inputs("sub", dev, seed=1)
+        n = opac.shape[0]
+        cols = [torch.as_tensor(rng.uniform(size=(n, C)).astype(np.float32), device=dev)]
+        if ext:
+            cols += [splats.depths[:, None], torch.ones(n, 1, device=dev)]
+        col = torch.cat(cols, 1).contiguous()
+        rec = cuda_raster.pack_records(splats, opac, kw["sub_opacities"] if sub else None)
+        ids, cnt, ntx = bins.gauss_ids.contiguous(), bins.counts.contiguous(), bins.n_tiles_x
+    else:
+        ids, cnt, rec, col, ntx = _edge_operands(scene, C, ext, sub, dev)
+    with torch.no_grad():
+        out, out2 = cuda_raster.composite_fwd(ids, cnt, rec, col, ntx, sub)
+    g = torch.as_tensor(rng.normal(size=out.shape).astype(np.float32), device=dev)
+    g2 = (torch.as_tensor(rng.normal(size=out2.shape).astype(np.float32), device=dev)
+          if sub else None)
+    return ids, cnt, rec, col, out, out2, g, g2, ntx, sub
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", list(BWD_CASES))
 def test_backward_kernel_matches_plain_on_card(case, cuda):
-    C, ext, sub = BWD_CASES[case]
-    bins, splats, opac, kw = _inputs("sub", cuda, seed=1)
-    n = opac.shape[0]
-    rng = np.random.default_rng(2)
-    cols = [torch.as_tensor(rng.uniform(size=(n, C)).astype(np.float32), device=cuda)]
-    if ext:
-        cols += [splats.depths[:, None], torch.ones(n, 1, device=cuda)]
-    col = torch.cat(cols, 1).contiguous()
-    rec = cuda_raster.pack_records(splats, opac, kw["sub_opacities"] if sub else None)
-    ids, cnt, ntx = bins.gauss_ids.contiguous(), bins.counts.contiguous(), bins.n_tiles_x
-    with torch.no_grad():
-        out, out2 = cuda_raster.composite_fwd(ids, cnt, rec, col, ntx, sub)
-    g = torch.as_tensor(rng.normal(size=out.shape).astype(np.float32), device=cuda)
-    g2 = (torch.as_tensor(rng.normal(size=out2.shape).astype(np.float32), device=cuda)
-          if sub else None)
+    args = _bwd_args(case, cuda)
+    sub = args[-1]
     name = "raster_bwd_sub" if sub else "raster_bwd"
     before = cuda_raster.launches[name]
-    k = cuda_raster.composite_bwd(ids, cnt, rec, col, out, out2, g, g2, ntx, sub)
-    p = cuda_raster.composite_bwd_plain(ids, cnt, rec, col, out, out2, g, g2, ntx, sub)
+    k = cuda_raster.composite_bwd(*args)
+    p = cuda_raster.composite_bwd_plain(*args)
     torch.cuda.synchronize()
     assert cuda_raster.launches[name] == before + 1
     n_rows = 7 if sub else 6
@@ -182,6 +266,25 @@ def test_backward_kernel_matches_plain_on_card(case, cuda):
         assert _rel_err(k[0][:, j], p[0][:, j]) <= BWD_REL, j
     assert not k[0][:, n_rows:].any()
     assert _rel_err(k[1], p[1]) <= BWD_REL
+    if BWD_CASES[case][3] == "saturating":
+        work = {}
+        ids, cnt, rec, col, *_ = args
+        cuda_raster.composite_tiles_plain(ids, cnt, rec, col, args[8], sub, work=work)
+        full = cnt == 256
+        assert full.any() and (work["slots"][full] == 128).all()  # stopped after chunk 1
+
+
+@pytest.mark.gpu
+def test_backward_kernel_repeats_on_card(cuda):
+    """Two launches on the same inputs agree within BWD_REL per column: the
+    atomics across tiles add in an order that changes from run to run."""
+    args = _bwd_args("wide_gauss_sub_ce29", cuda)
+    a = cuda_raster.composite_bwd(*args)
+    b = cuda_raster.composite_bwd(*args)
+    torch.cuda.synchronize()
+    for j in range(7):
+        assert _rel_err(a[0][:, j], b[0][:, j]) <= BWD_REL, j
+    assert _rel_err(a[1], b[1]) <= BWD_REL
 
 
 def _small_train_state(dev, seed=0):
