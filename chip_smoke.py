@@ -10,10 +10,11 @@ scene made from a seed and random Sandwich and BLCE weights:
 1. the card's name and power limit, torch and CUDA versions;
 2. build the forward and backward compositor kernels from
    ``mobgs_tpu_torch/csrc`` (one nvcc each, started together) and print
-   ``-Xptxas -v``'s registers, shared memory and spills; for each backward
-   instance the main path and phase 7 launch, the registers, shared memory,
-   spills and resident blocks per SM that the CUDA occupancy API gives, and
-   the waves that 576 tiles take (an instance that spills fails the run);
+   ``-Xptxas -v``'s registers, shared memory and spills; for each forward
+   and backward instance the main path and the tests launch, the threads
+   per block, registers, shared memory, spills and resident blocks per SM
+   that the CUDA occupancy API gives, and the waves that 576 tiles take
+   (an instance that spills fails the run);
 3. build the scene on the card (the generator's ground-truth renders
    already run through the kernel);
 4. hold the forward kernel against its plain PyTorch version on one
@@ -38,7 +39,9 @@ scene made from a seed and random Sandwich and BLCE weights:
    training path: 16 + 2 forward and 16 + 2 backward launches per step),
    check the parameters moved, and trace one step;
 10. time every kernel with CUDA events at protocol shape beside its plain
-    version and its bound, print the ``{"kernels": [...]}`` line, then the
+    version and its bound (the forward also at CE=9 image-only, the
+    instance the training path launches 16 times a step, on a line of its
+    own), print the ``{"kernels": [...]}`` line, then the
     ``{"ok": true, ...}`` line last.
 
 Every failure raises and exits non-zero. Without a CUDA card it exits 2
@@ -87,8 +90,10 @@ PEAK_BYTES = 3.35e12
 SOURCES = {"raster_fwd": "mobgs_tpu_torch/csrc/raster_fwd.cu",
            "raster_bwd": "mobgs_tpu_torch/csrc/raster_bwd.cu"}
 # the backward instances (CE, sub chain) launched at protocol shape: latent
-# render, mid render, alpha-only, flow-on mid render
+# render, mid render, alpha-only, flow-on mid render; the forward's add the
+# default render
 BWD_INSTANCES = ((9, False), (11, True), (2, False), (29, True))
+FWD_INSTANCES = ((2, False), (9, False), (11, False), (11, True), (29, True))
 PROTOCOL_TILES = 576
 REPLACES = {"raster_fwd": "mobgs_tpu/ops/pallas_raster.py:118",
             "raster_fwd_sub": "mobgs_tpu/ops/pallas_raster.py:151",
@@ -207,15 +212,19 @@ def main():
             if any(k in line for k in ("Compiling entry", "registers", "spill")):
                 print(f"  ptxas {name}:", line.split("info    :")[-1].strip())
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    for ce, sub in BWD_INSTANCES:
-        occ = cuda_raster.bwd_occupancy(ce, 256, sub, dev)
-        waves = -(-PROTOCOL_TILES // max(occ["blocks_per_sm"] * n_sm, 1))
-        print(f"  raster_bwd CE={ce} sub={sub}: {occ['registers']} registers, "
-              f"{occ['smem_bytes']} B shared, {occ['local_bytes']} B local, "
-              f"{occ['blocks_per_sm']} blocks/SM on {n_sm} SMs, "
-              f"{waves} wave(s) at {PROTOCOL_TILES} tiles")
-        require(occ["blocks_per_sm"] > 0, f"raster_bwd CE={ce} sub={sub} cannot launch")
-        require(occ["local_bytes"] == 0, f"raster_bwd CE={ce} sub={sub} spills")
+    for kname, occupancy, instances in (
+            ("raster_fwd", cuda_raster.fwd_occupancy, FWD_INSTANCES),
+            ("raster_bwd", cuda_raster.bwd_occupancy, BWD_INSTANCES)):
+        for ce, sub in instances:
+            occ = occupancy(ce, 256, sub, dev)
+            waves = -(-PROTOCOL_TILES // max(occ["blocks_per_sm"] * n_sm, 1))
+            threads = occ.get("threads", cuda_raster.P)
+            print(f"  {kname} CE={ce} sub={sub}: {threads} threads, "
+                  f"{occ['registers']} registers, {occ['smem_bytes']} B shared, "
+                  f"{occ['local_bytes']} B local, {occ['blocks_per_sm']} blocks/SM "
+                  f"on {n_sm} SMs, {waves} wave(s) at {PROTOCOL_TILES} tiles")
+            require(occ["blocks_per_sm"] > 0, f"{kname} CE={ce} sub={sub} cannot launch")
+            require(occ["local_bytes"] == 0, f"{kname} CE={ce} sub={sub} spills")
 
     phase("3 scene")
     t0 = time.time()
@@ -576,8 +585,11 @@ def main():
     if busy_us:
         print(f"trace: {wall_us:.0f} us wall per train step, {busy_us:.0f} us device "
               f"busy ({100 * busy_us / wall_us:.1f} %), {len(by_name)} kernel names")
-        for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
-            print(f"  {us:8.1f} us  {name[:90]}")
+        ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+        # the top ten, and the compositor kernels wherever they rank
+        for rank, (name, us) in enumerate(ranked, 1):
+            if rank <= 10 or "raster_" in name:
+                print(f"  {us:8.1f} us  #{rank:<3d} {name[:90]}")
     else:
         print("trace: the profiler recorded no device time (not measured)")
 
@@ -597,10 +609,15 @@ def main():
         })
         return bound_ms
 
-    for key, case in (("raster_fwd", "a_default_ce11"),
-                      ("raster_fwd_sub", "b_fused_sub")):
+    # the default render (CE=11) and the mid render's fused sub chain are
+    # the table's entries; the latent render (CE=9 image-only, 16 launches
+    # per train step) is printed on its own line
+    ext11 = torch.cat([geom.colors, splats.depths[:, None], ones], 1).detach().contiguous()
+    for key, case, col in (("raster_fwd", "a_default_ce11", ext11),
+                           ("raster_fwd_sub", "b_fused_sub", ext11),
+                           ("raster_fwd", "d_image_only_ce9",
+                            geom.colors.detach().contiguous())):
         sub = key == "raster_fwd_sub"
-        col = torch.cat([geom.colors, splats.depths[:, None], ones], 1).detach().contiguous()
         rec = cuda_raster.pack_records(splats, geom.opacity,
                                        sub_op if sub else None).detach()
         with torch.no_grad():
@@ -621,6 +638,13 @@ def main():
             ops += pairs * 4 + int(work["valid_sub"]) * 3
             bytes_ += 4 * (n_ref + T_tiles * 256)
         err = max(errs[case].get(k2, 0.0) for k2 in ("image", "alpha", "sub_alpha"))
+        if case == "d_image_only_ce9":
+            bound_ms = max(ops / PEAK_F32, bytes_ / PEAK_BYTES) * 1e3
+            print(f"{key} CE=9 image-only (the training path's latent render): "
+                  f"{ms:.4f} ms kernel, {plain_ms:.3f} ms plain, bound {bound_ms:.4f} ms "
+                  f"({100 * bound_ms / ms:.1f} % of bound; {ops / 1e9:.3f} GOP, "
+                  f"{bytes_ / 1e6:.2f} MB, {pairs} pairs)")
+            continue
         bound_ms = entry(key, ms, plain_ms, ops, bytes_, err)
         print(f"{key}: {ms:.4f} ms kernel, {plain_ms:.3f} ms plain, bound "
               f"{bound_ms:.4f} ms ({ops / 1e9:.3f} GOP, {bytes_ / 1e6:.2f} MB, "

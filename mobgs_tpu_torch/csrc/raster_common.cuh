@@ -25,15 +25,33 @@ constexpr float ALPHA_MAX = 0.99f;
 constexpr float ALPHA_MIN = 1.0f / 255.0f;
 constexpr float TRANS_EPS = 1e-4f;
 
+// The terms of sigma that depend only on the pixel's column: dx, a dx^2 and
+// b dx. Pixels of one column share them (the forward walks several).
+struct SigmaCol {
+  float dx, adx2, bdx;
+};
+
+__device__ __forceinline__ SigmaCol splat_sigma_col(float px, float mx,
+                                                    float a, float b) {
+  const float dx = __fsub_rn(px, mx);
+  return {dx, __fmul_rn(__fmul_rn(a, dx), dx), __fmul_rn(b, dx)};
+}
+
+// sigma of one pixel of that column, from its row's dy = py - my.
+__device__ __forceinline__ float splat_sigma_row(const SigmaCol& x, float py,
+                                                 float my, float c, float& dy) {
+  dy = __fsub_rn(py, my);
+  const float quad = __fadd_rn(x.adx2, __fmul_rn(__fmul_rn(c, dy), dy));
+  return __fadd_rn(__fmul_rn(0.5f, quad), __fmul_rn(x.bdx, dy));
+}
+
 // sigma = 0.5 (a dx^2 + c dy^2) + b dx dy with dx = px - mx, dy = py - my.
 __device__ __forceinline__ float splat_sigma(float px, float py, float mx,
                                              float my, float a, float b,
                                              float c, float& dx, float& dy) {
-  dx = __fsub_rn(px, mx);
-  dy = __fsub_rn(py, my);
-  const float quad = __fadd_rn(__fmul_rn(__fmul_rn(a, dx), dx),
-                               __fmul_rn(__fmul_rn(c, dy), dy));
-  return __fadd_rn(__fmul_rn(0.5f, quad), __fmul_rn(__fmul_rn(b, dx), dy));
+  const SigmaCol x = splat_sigma_col(px, mx, a, b);
+  dx = x.dx;
+  return splat_sigma_row(x, py, my, c, dy);
 }
 
 // Unclamped alpha o e^-sigma; the caller clamps with fminf(ALPHA_MAX, .)

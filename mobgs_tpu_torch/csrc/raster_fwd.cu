@@ -11,11 +11,69 @@
 // transmittance of its 256 pixels is <= 1e-4 (both chains with SUB).
 // There is no per-pixel stop, unlike gsplat.
 //
-// Layout: one block per tile, one thread per pixel. Each chunk's records
-// (mx, my, a, b, c, o[, o_sub]) and its CE colour columns are gathered by
-// gauss_id straight from the per-Gaussian tables into shared memory; the
-// per-pixel sums stay in registers. Plain C interface for ctypes: the
-// entry point returns cudaGetLastError() after the launch.
+// What bounds it on an H100. Per live (slot, pixel) pair about 16 float32
+// operations and one expf, per kept pair 2 + 2 CE more; the bytes (records
+// and colours of the referenced Gaussians, the output) are few, so the
+// float32 rate bounds it: 0.013-0.016 ms at the seesaw protocol view (576
+// tiles, K = 256). In practice the walk is bound by instruction issue and
+// latency: the earlier design (one thread per pixel, records in scalar
+// shared arrays) spent its issue slots on 32-bit shared loads (6-7 per
+// pair, CE more per kept pair) and ran one dependent sigma -> expf ->
+// weight -> FMA chain per thread. This one issues about 146 instructions
+// per slot and warp at CE = 9 for four pixels (sigma 7, expf 8, gates,
+// weight and transmittance 6, and the CE FMAs, per pixel), nearly all of
+// which the semantics need.
+//
+// Design. One block per tile, so the whole-tile exit stays one
+// __syncthreads_or. Each thread owns PPT pixels of one column (rows y0 ..
+// y0 + PPT - 1): PPT = 4 (64 threads) up to CE = 12, PPT = 2 (128 threads)
+// with the sub chain, where it measured 10 % faster (and 3-4 % slower at
+// CE = 9 without it), and above CE = 12, where 4 x 32 sums would not fit
+// in registers. A record fetched from shared memory then feeds PPT
+// independent chains, and the column's terms of sigma (dx, a dx^2, b dx)
+// are computed once for them (raster_common.cuh; the same rounded
+// operations). Records are staged as
+// two float4 per slot (mx, my, a, b | c, o, o_sub, pad: the record row as
+// it lies in device memory) and colours as rows padded to a multiple of
+// four floats, read as float4. The walk is straight-line, SLOTS slots a
+// step (two up to CE = 12): the step's records were loaded one step ahead
+// and its colour rows are loaded into registers first, so no shared load
+// waits behind a gate, and the FMAs are predicated on the gate. (A branch
+// around the colour sums, as the earlier design had, made every slot wait
+// for its row's address and loads after the gate.) Above CE = 12 the rows
+// stay in shared memory and are read only where a pixel kept the slot.
+// Each chunk is staged with cp.async: the thread that owns a slot copies
+// its record (two 16-byte copies) and its CE colours (4-byte copies: colour
+// rows are not 16-byte aligned); only the slots below the tile's count are
+// copied and walked. The copies are not overlapped with the walk: while a
+// block waits for them, the other blocks on its SM walk, and a
+// double-buffered version measured no faster.
+// Every pixel keeps its order of operations: slots in order,
+// acc[c] += w * col[c] with w = alpha * Tc * T, Tc = trans_step(Tc, alpha),
+// T *= Tc at the chunk's end, so the output is bit for bit that of the
+// earlier one-pixel-per-thread kernel and the backward's replay keeps and
+// drops the same pairs. expf is evaluated for every pair and gated after.
+//
+// Occupancy (raster_fwd_occupancy, chip_smoke.py phase 2): at CE = 9 / 11
+// 64 threads, 92 / 102 registers, 10 KB of shared memory, 10 / 8 blocks
+// per SM; with SUB at CE = 11 128 threads, 86 registers, 5 blocks; at
+// CE = 29 with SUB 128 threads, 96 registers, 20 KB, 5 blocks; no spills;
+// the 576 tiles of a 512x288 view are resident in one wave.
+//
+// What the attribution builds found (scripts/torch_raster_ab.py --kernel
+// fwd --variants, on an H100 80GB HBM3 at 700 W): the colour sums take 26
+// / 34 / 23 % of the time at CE = 9 / 11 / 11 with SUB (48 % at CE = 29),
+// so tensor cores are not worth their rounding here; staging every live
+// chunk alone takes 0.02-0.03 ms, off the critical path (see above); the
+// instances for any width up to 12 are 43-52 % slower than the exact-width
+// ones (CE = 9, 11); one slot a step is 2-5 % slower, the other choice of
+// pixels per thread 1-9 %. The kernel's span is its slowest tile's: at
+// CE = 9 a full tile alone on the card takes 41 us of the 64 us span, and
+// 26 % of the SM-time between the first block's start and the last one's
+// end is idle (15 % for the 128-thread blocks with SUB; 4 or 5 tiles per
+// SM, tiles of 18-64 us); balancing that tail is left open.
+// Plain C interface for ctypes: the entry point returns cudaGetLastError()
+// after the launch.
 
 #include "raster_common.cuh"
 
@@ -23,124 +81,278 @@ using namespace raster;
 
 namespace {
 
+// Pixels per thread, threads per block, the shared colour row (floats)
+// and the slots walked per step of an instance that sums CEM channels;
+// up to CE = 12 a step's colour rows are held in registers (REG_COL).
 template <int CEM, bool SUB>
-__global__ void __launch_bounds__(P)
+struct FwdShape {
+  static constexpr int PPT = CEM > 12 || SUB ? 2 : 4;
+  static constexpr int NT = P / PPT;
+  static constexpr int CES = (CEM + 3) / 4 * 4;
+  static constexpr int SLOTS = CEM > 12 ? 1 : 2;
+  static constexpr bool REG_COL = CEM <= 12;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+
+// Wait for all of this thread's copies.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::);
+}
+
+// Start copying the live slots [s0, s0 + live) of a tile's list into shared
+// memory: records as two float4 per slot, colours as rows of CES floats.
+template <int CEM, bool SUB>
+__device__ __forceinline__ void stage(const int32_t* __restrict__ ids_t,
+                                      const float* __restrict__ rec,
+                                      const float* __restrict__ col, int ce,
+                                      int s0, int live, float4* b_rec,
+                                      float* b_col, int tid) {
+  constexpr int NT = FwdShape<CEM, SUB>::NT, CES = FwdShape<CEM, SUB>::CES;
+  for (int s = tid; s < live; s += NT) {
+    const int g = ids_t[s0 + s];
+    const float* r = rec + (size_t)g * R;
+    cp_async16(b_rec + 2 * s, r);
+    cp_async16(b_rec + 2 * s + 1, r + 4);
+    const float* c = col + (size_t)g * ce;
+    float* d = b_col + s * CES;
+    for (int q = 0; q < ce; ++q) cp_async4(d + q, c + q);
+  }
+}
+
+// The gates of one slot for a thread's PPT pixels: each chain's alpha and
+// whether the pair passed (sigma >= 0, alpha > 1/255).
+template <int PPT>
+struct Gates {
+  float alpha[PPT], alpha_s[PPT];
+  bool keep[PPT], keep_s[PPT];
+};
+
+// sigma, alpha and the gates come from raster_common.cuh, rounded as the
+// plain version and the backward round them: a gate that rounding flips
+// would move a pixel's sums by up to T/255. Branch-free: expf runs for
+// every pair, and a pair it overflows for (sigma < 0) is never kept.
+template <int PPT, bool SUB>
+__device__ __forceinline__ void slot_gates(const float4 r0, const float4 r1,
+                                           float px, const float (&py)[PPT],
+                                           Gates<PPT>& g) {
+  const SigmaCol sx = splat_sigma_col(px, r0.x, r0.z, r0.w);
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    float dy;
+    const float sigma = splat_sigma_row(sx, py[k], r0.y, r1.x, dy);
+    const float e = expf(-sigma);
+    g.alpha[k] = fminf(ALPHA_MAX, splat_raw_alpha(r1.y, e));
+    g.keep[k] = sigma >= 0.f && g.alpha[k] > ALPHA_MIN;
+    if (SUB) {
+      g.alpha_s[k] = fminf(ALPHA_MAX, splat_raw_alpha(r1.z, e));
+      g.keep_s[k] = sigma >= 0.f && g.alpha_s[k] > ALPHA_MIN;
+    }
+  }
+}
+
+// acc[k][c] += w[k] * colour[c] for the kept pixels, the colour row read
+// as float4s (from registers or shared memory).
+template <int CEM, bool EXACT, int PPT>
+__device__ __forceinline__ void colour_sums(const float4* colour, int ce,
+                                            const float (&w)[PPT],
+                                            const bool (&keep)[PPT],
+                                            float (&acc)[PPT][CEM]) {
+#pragma unroll
+  for (int q = 0; q < (CEM + 3) / 4; ++q) {
+    const float4 cv = colour[q];
+    const float cq[4] = {cv.x, cv.y, cv.z, cv.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = 4 * q + i;
+      if (c < CEM && (EXACT || c < ce)) {
+#pragma unroll
+        for (int k = 0; k < PPT; ++k)
+          if (keep[k]) acc[k][c] += w[k] * cq[i];
+      }
+    }
+  }
+}
+
+// One slot's weights and sums, in the per-pixel order of the Pallas
+// kernel: w = alpha * Tc * T, then Tc = trans_step(Tc, alpha).
+template <int CEM, bool EXACT, bool SUB, int PPT>
+__device__ __forceinline__ void composite_slot(
+    const Gates<PPT>& g, const float4* colour, int ce, const float (&T)[PPT],
+    const float (&T2)[PPT], float (&Tc)[PPT], float (&T2c)[PPT],
+    float (&acc)[PPT][CEM], float (&acc2)[PPT]) {
+  float w[PPT];
+  bool any = false;
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    w[k] = g.alpha[k] * Tc[k] * T[k];
+    if (g.keep[k]) Tc[k] = trans_step(Tc[k], g.alpha[k]);
+    any |= g.keep[k];
+    if (SUB && g.keep_s[k]) {
+      acc2[k] += g.alpha_s[k] * T2c[k] * T2[k];
+      T2c[k] = trans_step(T2c[k], g.alpha_s[k]);
+    }
+  }
+  // predicated where the row is in registers; read from shared memory (the
+  // widest instance) only where a pixel kept the slot
+  if (FwdShape<CEM, SUB>::REG_COL || any)
+    colour_sums<CEM, EXACT>(colour, ce, w, g.keep, acc);
+}
+
+// EXACT: the launch guarantees CE == CEM (the training and render widths),
+// so no channel test is left in the sums.
+template <int CEM, bool EXACT, bool SUB>
+__global__ void __launch_bounds__(FwdShape<CEM, SUB>::NT, 5)
 raster_fwd_kernel(const int32_t* __restrict__ ids,     // [T, K]
                   const int32_t* __restrict__ counts,  // [T]
-                  const float* __restrict__ rec,       // [N, R]
+                  const float* __restrict__ rec,       // [N, R], 16-B aligned
                   const float* __restrict__ col,       // [N, CE]
                   float* __restrict__ out,             // [T, P, CE]
                   float* __restrict__ out2,            // [T, P] (SUB only)
                   int K, int CE, int ntx, int ch) {
-  __shared__ int s_id[CH_MAX];
-  __shared__ float s_mx[CH_MAX], s_my[CH_MAX];
-  __shared__ float s_a[CH_MAX], s_b[CH_MAX], s_c[CH_MAX];
-  __shared__ float s_o[CH_MAX], s_os[CH_MAX];
-  __shared__ float s_col[CH_MAX * CEM];
+  constexpr int PPT = FwdShape<CEM, SUB>::PPT, CES = FwdShape<CEM, SUB>::CES;
+  constexpr bool REG_COL = FwdShape<CEM, SUB>::REG_COL;
+  __shared__ float4 s_rec[2 * CH_MAX];  // mx, my, a, b | c, o, o_sub, pad
+  __shared__ float4 s_col4[CH_MAX * CES / 4];
 
+  const int ce = EXACT ? CEM : CE;
   const int tile = blockIdx.x;
   const int tid = threadIdx.x;
   const int count = counts[tile];
-  const float px = (float)(tid % TILE) + 0.5f + (float)((tile % ntx) * TILE);
-  const float py = (float)(tid / TILE) + 0.5f + (float)((tile / ntx) * TILE);
-
-  float acc[CEM];
+  const int x = tid % TILE;
+  const int y0 = (tid / TILE) * PPT;  // this thread's rows y0 .. y0 + PPT - 1
+  const float px = (float)x + 0.5f + (float)((tile % ntx) * TILE);
+  float py[PPT];
 #pragma unroll
-  for (int c = 0; c < CEM; ++c) acc[c] = 0.f;
-  float acc2 = 0.f;
-  float T = 1.f, T2 = 1.f;
+  for (int k = 0; k < PPT; ++k)
+    py[k] = (float)(y0 + k) + 0.5f + (float)((tile / ntx) * TILE);
 
-  const int n_chunks = K / ch;
-  for (int j = 0; j < n_chunks && j * ch < count; ++j) {
-    const int s0 = j * ch;
-    // Stage the chunk's records; slots past the tile's count hold
-    // garbage ids and become zero-opacity records that never pass.
-    for (int s = tid; s < ch; s += P) {
-      const int slot = s0 + s;
-      if (slot < count) {
-        const int g = ids[(size_t)tile * K + slot];
-        const float* r = rec + (size_t)g * R;
-        s_id[s] = g;
-        s_mx[s] = r[0];
-        s_my[s] = r[1];
-        s_a[s] = r[2];
-        s_b[s] = r[3];
-        s_c[s] = r[4];
-        s_o[s] = r[5];
-        if (SUB) s_os[s] = r[6];
-      } else {
-        s_id[s] = -1;
-        s_mx[s] = s_my[s] = 0.f;
-        s_a[s] = s_b[s] = s_c[s] = 0.f;
-        s_o[s] = 0.f;
-        if (SUB) s_os[s] = 0.f;
-      }
-    }
-    __syncthreads();
-    for (int e = tid; e < ch * CE; e += P) {
-      const int s = e / CE;
-      const int c = e - s * CE;
-      const int g = s_id[s];
-      s_col[s * CEM + c] = g >= 0 ? col[(size_t)g * CE + c] : 0.f;
-    }
+  float acc[PPT][CEM];
+  float T[PPT], acc2[PPT], T2[PPT];
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+#pragma unroll
+    for (int c = 0; c < CEM; ++c) acc[k][c] = 0.f;
+    T[k] = T2[k] = 1.f;
+    acc2[k] = 0.f;
+  }
+
+  const int32_t* ids_t = ids + (size_t)tile * K;
+  const int n_chunks = min(K / ch, (count + ch - 1) / ch);  // chunks with a live slot
+  for (int j = 0; j < n_chunks; ++j) {
+    const int live = min(ch, count - j * ch);
+    // ---- stage the chunk ----
+    // (the previous chunk-end barrier keeps the copies off records in use;
+    // the block waits for them while the other blocks on its SM walk)
+    stage<CEM, SUB>(ids_t, rec, col, ce, j * ch, live, s_rec,
+               reinterpret_cast<float*>(s_col4), tid);
+    cp_async_wait_all();
     __syncthreads();
 
-    float Tc = 1.f, T2c = 1.f;  // exclusive prefix products in the chunk
-    for (int s = 0; s < ch; ++s) {
-      // sigma, alpha and the transmittance steps come from
-      // raster_common.cuh, rounded as the plain version and the backward
-      // round them: a gate that rounding flips would move a pixel's sums
-      // by up to T/255.
-      float dx, dy;
-      const float sigma = splat_sigma(px, py, s_mx[s], s_my[s], s_a[s],
-                                      s_b[s], s_c[s], dx, dy);
-      if (!(sigma >= 0.f)) continue;
-      const float e = expf(-sigma);
-      const float alpha = fminf(ALPHA_MAX, splat_raw_alpha(s_o[s], e));
-      if (alpha > ALPHA_MIN) {
-        const float w = alpha * Tc * T;
+    // ---- walk the chunk ----
+    float Tc[PPT], T2c[PPT];  // exclusive prefix products in the chunk
 #pragma unroll
-        for (int c = 0; c < CEM; ++c)
-          if (c < CE) acc[c] += w * s_col[s * CEM + c];
-        Tc = trans_step(Tc, alpha);
-      }
-      if (SUB) {
-        const float alpha_s = fminf(ALPHA_MAX, splat_raw_alpha(s_os[s], e));
-        if (alpha_s > ALPHA_MIN) {
-          acc2 += alpha_s * T2c * T2;
-          T2c = trans_step(T2c, alpha_s);
+    for (int k = 0; k < PPT; ++k) Tc[k] = T2c[k] = 1.f;
+    // SL slots a step, straight-line: the step's records were loaded one
+    // step ahead and its colour rows are loaded first, so no shared load
+    // waits behind a gate; the slots' gates are independent chains, which
+    // the compiler interleaves; the sums then take the slots in order. A
+    // slot index past the chunk's end is clamped and its sums skipped.
+    constexpr int SL = FwdShape<CEM, SUB>::SLOTS, NQ = CES / 4;
+    float4 rn[SL][2];
+#pragma unroll
+    for (int i = 0; i < SL; ++i) {
+      const int si = min(i, live - 1);
+      rn[i][0] = s_rec[2 * si];
+      rn[i][1] = s_rec[2 * si + 1];
+    }
+    for (int s = 0; s < live; s += SL) {
+      float4 r[SL][2], c[SL][REG_COL ? NQ : 1];
+#pragma unroll
+      for (int i = 0; i < SL; ++i) {
+        r[i][0] = rn[i][0];
+        r[i][1] = rn[i][1];
+        if (REG_COL) {
+          const int si = min(s + i, live - 1);
+#pragma unroll
+          for (int q = 0; q < NQ; ++q) c[i][q] = s_col4[si * NQ + q];
         }
+        const int ni = min(s + SL + i, live - 1);
+        rn[i][0] = s_rec[2 * ni];
+        rn[i][1] = s_rec[2 * ni + 1];
       }
+      Gates<PPT> g[SL];
+#pragma unroll
+      for (int i = 0; i < SL; ++i) slot_gates<PPT, SUB>(r[i][0], r[i][1], px, py, g[i]);
+#pragma unroll
+      for (int i = 0; i < SL; ++i)
+        if (i == 0 || s + i < live)
+          composite_slot<CEM, EXACT, SUB>(g[i], REG_COL ? c[i] : s_col4 + (s + i) * NQ,
+                                          ce, T, T2, Tc, T2c, acc, acc2);
     }
-    T = __fmul_rn(T, Tc);
-    if (SUB) T2 = __fmul_rn(T2, T2c);
-    // chunk-level early exit for the whole tile; the barrier also keeps
-    // the next chunk's staging from overwriting records still in use
-    const bool more = SUB ? (T > TRANS_EPS || T2 > TRANS_EPS) : (T > TRANS_EPS);
+    bool more = false;
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+      T[k] = __fmul_rn(T[k], Tc[k]);
+      if (SUB) T2[k] = __fmul_rn(T2[k], T2c[k]);
+      more |= SUB ? (T[k] > TRANS_EPS || T2[k] > TRANS_EPS) : (T[k] > TRANS_EPS);
+    }
+    // ---- end of the walk ----
+    // chunk-level early exit for the whole tile
     if (!__syncthreads_or(more)) break;
   }
 
-  float* o = out + ((size_t)tile * P + tid) * CE;
+  // ---- write the tile's sums ----
 #pragma unroll
-  for (int c = 0; c < CEM; ++c)
-    if (c < CE) o[c] = acc[c];
-  if (SUB) out2[(size_t)tile * P + tid] = acc2;
+  for (int k = 0; k < PPT; ++k) {
+    const size_t p = (size_t)tile * P + (y0 + k) * TILE + x;
+#pragma unroll
+    for (int c = 0; c < CEM; ++c)
+      if (EXACT || c < ce) out[p * ce + c] = acc[k][c];
+    if (SUB) out2[p] = acc2[k];
+  }
 }
 
+using KernelFn = void (*)(const int32_t*, const int32_t*, const float*,
+                          const float*, float*, float*, int, int, int, int);
+
+// The instance a launch with CE channels takes, and its block size.
 template <bool SUB>
-void launch(const int32_t* ids, const int32_t* counts, const float* rec,
-            const float* col, float* out, float* out2, int T, int K, int CE,
-            int ntx, int ch, cudaStream_t stream) {
-  const dim3 grid(T), block(P);
-  if (CE <= 4)
-    raster_fwd_kernel<4, SUB><<<grid, block, 0, stream>>>(
-        ids, counts, rec, col, out, out2, K, CE, ntx, ch);
-  else if (CE <= 12)
-    raster_fwd_kernel<12, SUB><<<grid, block, 0, stream>>>(
-        ids, counts, rec, col, out, out2, K, CE, ntx, ch);
-  else
-    raster_fwd_kernel<32, SUB><<<grid, block, 0, stream>>>(
-        ids, counts, rec, col, out, out2, K, CE, ntx, ch);
+KernelFn pick_sub(int CE, int& threads) {
+  if (CE == 9) {
+    threads = FwdShape<9, SUB>::NT;
+    return raster_fwd_kernel<9, true, SUB>;
+  }
+  if (CE == 11) {
+    threads = FwdShape<11, SUB>::NT;
+    return raster_fwd_kernel<11, true, SUB>;
+  }
+  if (CE <= 4) {
+    threads = FwdShape<4, SUB>::NT;
+    return raster_fwd_kernel<4, false, SUB>;
+  }
+  if (CE <= 12) {
+    threads = FwdShape<12, SUB>::NT;
+    return raster_fwd_kernel<12, false, SUB>;
+  }
+  threads = FwdShape<32, SUB>::NT;
+  return raster_fwd_kernel<32, false, SUB>;
+}
+
+KernelFn pick(int CE, bool sub, int& threads) {
+  return sub ? pick_sub<true>(CE, threads) : pick_sub<false>(CE, threads);
+}
+
+bool bad_shape(int CE, int ch) {
+  return CE < 1 || CE > 32 || ch < 1 || ch > CH_MAX;
 }
 
 }  // namespace
@@ -149,19 +361,38 @@ extern "C" int raster_fwd(const void* ids, const void* counts, const void* rec,
                           const void* col, void* out, void* out2, int T, int K,
                           int CE, int ntx, int ch, int sub, void* stream) {
   if (T <= 0) return 0;
-  if (CE < 1 || CE > 32 || ch < 1 || ch > CH_MAX || K % ch != 0 || ntx < 1 ||
-      (sub && out2 == nullptr))
+  if (bad_shape(CE, ch) || K % ch != 0 || ntx < 1 || (sub && out2 == nullptr))
     return (int)cudaErrorInvalidValue;
-  const auto* i = static_cast<const int32_t*>(ids);
-  const auto* n = static_cast<const int32_t*>(counts);
-  const auto* r = static_cast<const float*>(rec);
-  const auto* c = static_cast<const float*>(col);
-  auto* o = static_cast<float*>(out);
-  auto* o2 = static_cast<float*>(out2);
-  auto st = static_cast<cudaStream_t>(stream);
-  if (sub)
-    launch<true>(i, n, r, c, o, o2, T, K, CE, ntx, ch, st);
-  else
-    launch<false>(i, n, r, c, o, o2, T, K, CE, ntx, ch, st);
+  // records are copied 16 bytes at a time
+  if (reinterpret_cast<uintptr_t>(rec) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  int threads = 0;
+  const KernelFn k = pick(CE, sub != 0, threads);
+  k<<<T, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(ids), static_cast<const int32_t*>(counts),
+      static_cast<const float*>(rec), static_cast<const float*>(col),
+      static_cast<float*>(out), static_cast<float*>(out2), K, CE, ntx, ch);
   return (int)cudaGetLastError();
+}
+
+// What the card gives the instance that raster_fwd launches for (CE, sub)
+// on the current device: info = {resident blocks per SM, shared memory
+// bytes per block, registers per thread, local memory bytes per thread
+// (spills), threads per block}. ch is checked as raster_fwd checks it.
+extern "C" int raster_fwd_occupancy(int CE, int ch, int sub, int* info) {
+  if (bad_shape(CE, ch) || info == nullptr) return (int)cudaErrorInvalidValue;
+  int threads = 0;
+  const KernelFn k = pick(CE, sub != 0, threads);
+  int blocks = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, threads, 0);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, k);
+  if (err != cudaSuccess) return (int)err;
+  info[0] = blocks;
+  info[1] = (int)attr.sharedSizeBytes;
+  info[2] = attr.numRegs;
+  info[3] = (int)attr.localSizeBytes;
+  info[4] = threads;
+  return 0;
 }

@@ -26,11 +26,15 @@ rate. Both read each chunk's records once per tile, gathered by
 ``gauss_id`` straight into shared memory: no ``[T, NC, R+CE]`` record
 table in device memory, which is what ``_gather_records``
 (``pallas_raster.py:398-428``) builds for the TPU's block specs. The
-forward keeps its per-pixel sums in registers (one thread per pixel). The
-backward replays a few slots at a time per pixel into shared memory, then
-sums each slot over the tile's pixels with one atomic per slot and term
-(``raster_bwd.cu``'s note; :func:`bwd_occupancy` reports its resident
-blocks). No tensor cores, TMA or pipelining yet.
+forward gives each thread several pixels of one column and reads each
+record as two 16-byte shared loads that feed all of them, in a
+straight-line walk of two slots a step; its output is bit for bit that of
+one thread per pixel (``raster_fwd.cu``'s note). The backward
+replays a few slots at a time per pixel into shared memory, then sums each
+slot over the tile's pixels with one atomic per slot and term
+(``raster_bwd.cu``'s note). :func:`fwd_occupancy` and
+:func:`bwd_occupancy` report what the card gives each instance. No tensor
+cores or TMA.
 
 The plain versions (:func:`composite_tiles_plain`,
 :func:`composite_bwd_plain`) keep the Pallas semantics exactly — chunks of
@@ -161,9 +165,9 @@ def _library(name: str) -> ctypes.CDLL:
         n_ptr = 6 if name == "raster_fwd" else 10
         fn.argtypes = [vp] * n_ptr + [ci] * 6 + [vp]
         fn.restype = ci
-        if name == "raster_bwd":
-            lib.raster_bwd_occupancy.argtypes = [ci, ci, ci, vp]
-            lib.raster_bwd_occupancy.restype = ci
+        occ = getattr(lib, f"{name}_occupancy")
+        occ.argtypes = [ci, ci, ci, vp]
+        occ.restype = ci
         _libs[name] = lib
     return _libs[name]
 
@@ -207,6 +211,9 @@ def _launch(ids, counts, rec, col, ntx: int, sub: bool):
     """Launch the forward kernel on the current stream; returns
     (out, out2|None)."""
     _check_operands("raster_fwd", ids, counts, rec, col)
+    if rec.data_ptr() % 16:
+        raise ValueError("raster_fwd: rec is not 16-byte aligned (records "
+                         "are copied 16 bytes at a time)")
     T, K = ids.shape
     CE = col.shape[1]
     dev = rec.device
@@ -250,20 +257,30 @@ def _launch_bwd(ids, counts, rec, col, out, out2, g, g2, ntx: int, sub: bool):
     return grad_rec, grad_col
 
 
+def _occupancy(name: str, n: int, CE: int, K: int, sub: bool, device):
+    info = (ctypes.c_int * n)()
+    lib = _library(name)
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        err = getattr(lib, f"{name}_occupancy")(CE, _pick_chunk(K), int(sub),
+                                               ctypes.addressof(info))
+    if err != 0:
+        raise RuntimeError(f"{name}_occupancy failed: CUDA error {err}")
+    return dict(zip(("blocks_per_sm", "smem_bytes", "registers", "local_bytes",
+                     "threads"), info))
+
+
 def bwd_occupancy(CE: int, K: int, sub: bool, device=None) -> dict[str, int]:
     """What the card gives the backward kernel instance that a launch with
     CE channels and max_per_tile K takes: resident ``blocks_per_sm``,
     ``smem_bytes`` per block, ``registers`` per thread and ``local_bytes``
     per thread (spills), from the CUDA occupancy API."""
-    info = (ctypes.c_int * 4)()
-    lib = _library("raster_bwd")
-    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
-        err = lib.raster_bwd_occupancy(CE, _pick_chunk(K), int(sub),
-                                       ctypes.addressof(info))
-    if err != 0:
-        raise RuntimeError(f"raster_bwd_occupancy failed: CUDA error {err}")
-    return dict(zip(("blocks_per_sm", "smem_bytes", "registers", "local_bytes"),
-                    info))
+    return _occupancy("raster_bwd", 4, CE, K, sub, device)
+
+
+def fwd_occupancy(CE: int, K: int, sub: bool, device=None) -> dict[str, int]:
+    """As :func:`bwd_occupancy`, for the forward kernel's instance, with its
+    block size (``threads``: it owns several pixels per thread)."""
+    return _occupancy("raster_fwd", 5, CE, K, sub, device)
 
 
 class _CompositeCuda(torch.autograd.Function):

@@ -7,7 +7,9 @@ card (decided inside the test). Run on the card with
 
 Tolerances: forward image and alpha atol 1e-4, depth rtol 1e-3 where
 α > 1e-3 — the kernel sums in another order than the plain version (serial
-walk vs cumprod and batched matmul) and contracts the sums into FMAs.
+walk vs cumprod and batched matmul) and contracts the sums into FMAs; on
+written-out tile lists its raw output within 1e-4. Two forward launches on
+the same inputs agree to the bit (no atomics).
 Backward, each gradient column within BWD_REL of its largest magnitude:
 the kernel's per-pixel running sums, its warp reductions and its atomics
 (whose order changes from run to run) sum in other orders than cumsum and
@@ -38,6 +40,15 @@ ATOL = 1e-4
 BWD_REL = 1e-4   # measured at most 1.2e-6 at the protocol view (chip_smoke.py)
 STEP_REL = 1e-3  # measured at most 6e-7 per leaf at protocol shape
 CASES = ("default", "sub", "alpha_only", "image_only", "wide_ce29")
+# the forward on the tile lists of _edge_operands: (scene, random colour
+# columns, + depth and ones columns, sub chain) at CE = 2, 9, 11 + sub and
+# 29 + sub; counts that are no multiple of a thread's pixels or of a chunk,
+# count 0, an exit after chunk 1 in both chains, a Gaussian in every list
+FWD_EDGE = {f"{scene}_{width}": (scene, *spec)
+            for scene in ("ragged", "k64", "saturating", "wide_gauss")
+            for width, spec in (("ce2", (0, True, False)), ("ce9", (9, False, False)),
+                                ("ce11_sub", (9, True, True)),
+                                ("ce29_sub", (27, True, True)))}
 
 
 @pytest.fixture
@@ -84,8 +95,11 @@ def _check(k, p, depth=True):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", CASES + tuple(FWD_EDGE))
 def test_kernel_matches_plain_on_card(case, cuda):
+    if case in FWD_EDGE:
+        _edge_forward_matches_plain(case, cuda)
+        return
     bins, splats, opac, kw = _inputs(case, cuda)
     cols = kw.pop("colors")
     before = dict(cuda_raster.launches)
@@ -111,6 +125,12 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         cuda_raster.composite_fwd(bins.gauss_ids, bins.counts, rec,
                                   torch.zeros(3, opac.shape[0], device=cuda).T,
+                                  bins.n_tiles_x)
+    # records are copied 16 bytes at a time: a contiguous view 4 bytes off
+    shifted = torch.zeros(rec.numel() + 1, device=cuda)[1:].view(rec.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        cuda_raster.composite_fwd(bins.gauss_ids, bins.counts, shifted,
+                                  torch.zeros(opac.shape[0], 3, device=cuda),
                                   bins.n_tiles_x)
 
 
@@ -223,6 +243,42 @@ def _edge_operands(scene, C, ext, sub, dev):
         np.ascontiguousarray(x), dtype=dt, device=dev)
     return (to(ids, torch.int32), to(counts, torch.int32), to(rec),
             to(np.concatenate(cols, 1)), ntx)
+
+
+def _edge_forward_matches_plain(case, dev):
+    scene, C, ext, sub = FWD_EDGE[case]
+    ids, cnt, rec, col, ntx = _edge_operands(scene, C, ext, sub, dev)
+    name = "raster_fwd_sub" if sub else "raster_fwd"
+    before = cuda_raster.launches[name]
+    work = {}
+    with torch.no_grad():
+        k = cuda_raster.composite_fwd(ids, cnt, rec, col, ntx, sub)
+        p = cuda_raster.composite_tiles_plain(ids, cnt, rec, col, ntx, sub, work=work)
+    torch.cuda.synchronize()
+    assert cuda_raster.launches[name] == before + 1
+    np.testing.assert_allclose(k[0].cpu().numpy(), p[0].cpu().numpy(), atol=ATOL)
+    if sub:
+        np.testing.assert_allclose(k[1].cpu().numpy(), p[1].cpu().numpy(), atol=ATOL)
+    assert float(p[0].abs().max()) > 0
+    assert not k[0][cnt == 0].any()  # a tile with no slot writes zeros
+    if scene == "saturating":
+        full = cnt == 256
+        assert full.any() and (work["slots"][full] == 128).all()  # stopped after chunk 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ("ragged_ce9", "saturating_ce11_sub", "wide_gauss_ce29_sub"))
+def test_forward_kernel_repeats_bitwise_on_card(case, cuda):
+    """The forward has no atomics and a fixed order of operations per
+    pixel: two launches on the same inputs agree to the bit."""
+    scene, C, ext, sub = FWD_EDGE[case]
+    ids, cnt, rec, col, ntx = _edge_operands(scene, C, ext, sub, cuda)
+    with torch.no_grad():
+        a = cuda_raster.composite_fwd(ids, cnt, rec, col, ntx, sub)
+        b = cuda_raster.composite_fwd(ids, cnt, rec, col, ntx, sub)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0])
+    assert not sub or torch.equal(a[1], b[1])
 
 
 def _bwd_args(case, dev):

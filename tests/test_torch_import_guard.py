@@ -1,6 +1,6 @@
-"""The PyTorch port stands alone: nothing in ``mobgs_tpu_torch/`` or the
-root ``chip_smoke.py`` imports ``jax`` or the JAX package ``mobgs_tpu``
-(only the tests import both)."""
+"""The PyTorch port stands alone: nothing in ``mobgs_tpu_torch/``, the
+root ``chip_smoke.py`` or the port's scripts ``scripts/torch_*.py`` imports
+``jax`` or the JAX package ``mobgs_tpu`` (only the tests import both)."""
 
 import ast
 from pathlib import Path
@@ -12,7 +12,8 @@ FORBIDDEN = ("jax", "jaxlib", "mobgs_tpu")
 
 
 def _port_files():
-    return sorted((ROOT / "mobgs_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted((ROOT / "mobgs_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "scripts").glob("torch_*.py")))
 
 
 def _imported_roots(path: Path):
