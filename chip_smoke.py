@@ -1,17 +1,18 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port (``mobgs_tpu_torch``).
 
-Drives the port's serving path and its flow-off training step on one CUDA
-card at the seesaw protocol's full width (512x288, 24 frames, 20k static +
-10k dynamic seeds at x2 capacity = 40k + 20k slots, tiles_per_gauss=9,
-max_per_tile=256; training at B=2 views and E=9 latent exposures), with a
-scene made from a seed and random Sandwich and BLCE weights:
+Drives the port's serving path, its flow-off and flow-on training steps and
+its exposure re-estimation on one CUDA card at the seesaw protocol's full
+width (512x288, 24 frames, 20k static + 10k dynamic seeds at x2 capacity =
+40k + 20k slots, tiles_per_gauss=9, max_per_tile=256; training at B=2 views
+and E=9 latent exposures), with a scene made from a seed and random
+Sandwich and BLCE weights:
 
 1. the card's name and power limit, torch and CUDA versions;
 2. build the forward and backward compositor kernels from
    ``mobgs_tpu_torch/csrc`` (one nvcc each, started together) and print
    ``-Xptxas -v``'s registers, shared memory and spills; for each forward
-   and backward instance the main path and the tests launch, the threads
+   and backward instance the main paths and the tests launch, the threads
    per block, registers, shared memory, spills and resident blocks per SM
    that the CUDA occupancy API gives, and the waves that 576 tiles take
    (an instance that spills fails the run);
@@ -31,18 +32,34 @@ scene made from a seed and random Sandwich and BLCE weights:
    (mid render), (c) CE=2 alpha-only, (d) CE=29 with the sub chain (the
    flow-on mid render's width: 9 + 2·9 flow columns + depth + weight),
    upstream gradients from a seeded numpy generator;
-8. one train step's loss and gradients through the kernels against the
-   plain route (``RasterConfig(backend="plain")``), same state and batch;
-9. train: 3 warm-up and 20 timed flow-off steps through
-   ``make_train_step`` with ``BatchSampler(24, 2, seed=0)``; report it/s,
-   loss and PSNR per step, read the launch counts of the timed steps (the
-   training path: 16 + 2 forward and 16 + 2 backward launches per step),
-   check the parameters moved, and trace one step;
-10. time every kernel with CUDA events at protocol shape beside its plain
-    version and its bound (the forward also at CE=9 image-only, the
-    instance the training path launches 16 times a step, on a line of its
-    own), print the ``{"kernels": [...]}`` line, then the
-    ``{"ok": true, ...}`` line last.
+8. one flow-off train step's loss and gradients through the kernels
+   against the plain route (``RasterConfig(backend="plain")``), same state
+   and batch;
+9. train: 3 warm-up and 20 timed flow-off steps through ``make_train_step``
+   with ``BatchSampler(24, 2, seed=0)``; report it/s, loss and PSNR per
+   step, read the launch counts of the timed steps (16 + 2 forward and
+   16 + 2 backward launches per step), check the parameters moved, and
+   trace one step;
+10. the same check as 8 for a flow-on step (``lambda_flow_loss=1e-2``, the
+    default configuration), whose flow term must be finite and positive;
+11. train 3 warm-up and 10 timed flow-on steps from a fresh state: it/s,
+    loss, flow term and PSNR per step; exactly 16 ``raster_fwd`` / 18
+    ``raster_fwd_sub`` / 16 ``raster_bwd`` / 18 ``raster_bwd_sub``
+    launches per step (the CE=11 + sub exposure-flow passes and the CE=29 +
+    sub mid render by instance); parameters moved; one step traced; the
+    warp loss of one view traced alone;
+12. ``make_exposure_update`` on a batch with an endpoint view through the
+    kernels and the plain route (new exposures within EXPO_RTOL, finite,
+    written only at the batch's views), then timed over 10 calls, each 4
+    CE=4 forward launches and no backward; one call traced;
+13. time every kernel with CUDA events at protocol shape beside its plain
+    version and its bound; the table's four entries, and on lines of their
+    own the instances the training paths launch: CE=9 image-only, the CE=11
+    + sub exposure-flow pass, the CE=29 + sub mid render forward and
+    backward, and ``get_flow_static``'s CE=4 forward, each with its
+    flow-on launches;
+14. print the ``{"kernels": [...]}`` line (launches: the flow-off training
+    path's), then the card line and the ``{"ok": true, ...}`` line last.
 
 Every failure raises and exits non-zero. Without a CUDA card it exits 2
 and prints no result. Run: ``python3 chip_smoke.py``.
@@ -83,6 +100,14 @@ STEP_REL = {"stat": 1e-4, "dyn": 1e-4, "sandwich": 1e-4, "blce": 1e-3,
             "offsets": 1e-4}
 LOSS_RTOL = 1e-5
 N_WARM, N_STEPS, B_VIEWS, E_WARP = 3, 20, 2, 9
+N_FLOW_WARM, N_FLOW_STEPS, LAMBDA_FLOW = 3, 10, 1e-2
+# The exposure update through the kernels vs the plain route: a median of
+# ratios of composited flow magnitudes, so the compositor's differences
+# above, unless they move a pixel across the 1 % quantile cut-off.
+EXPO_RTOL = 1e-3
+N_EXPO = 10
+# flow columns are displacements in pixels: their kernel-vs-plain difference
+# is held at IMG_ATOL times their largest magnitude (at least 1 pixel)
 # Published H100 SXM peaks (NVIDIA data sheet, at 700 W): float32 outside
 # the tensor cores, and HBM3 bandwidth.
 PEAK_F32 = 67e12
@@ -90,15 +115,20 @@ PEAK_BYTES = 3.35e12
 SOURCES = {"raster_fwd": "mobgs_tpu_torch/csrc/raster_fwd.cu",
            "raster_bwd": "mobgs_tpu_torch/csrc/raster_bwd.cu"}
 # the backward instances (CE, sub chain) launched at protocol shape: latent
-# render, mid render, alpha-only, flow-on mid render; the forward's add the
-# default render
+# render, mid render and exposure-flow pass, alpha-only, flow-on mid render;
+# the forward's add get_flow_static's (CE=4) and the default render
 BWD_INSTANCES = ((9, False), (11, True), (2, False), (29, True))
-FWD_INSTANCES = ((2, False), (9, False), (11, False), (11, True), (29, True))
+FWD_INSTANCES = ((2, False), (4, False), (9, False), (11, False), (11, True), (29, True))
 PROTOCOL_TILES = 576
 REPLACES = {"raster_fwd": "mobgs_tpu/ops/pallas_raster.py:118",
             "raster_fwd_sub": "mobgs_tpu/ops/pallas_raster.py:151",
             "raster_bwd": "mobgs_tpu/ops/pallas_raster.py:203",
             "raster_bwd_sub": "mobgs_tpu/ops/pallas_raster.py:285"}
+
+
+def flow_err(k, p):
+    """Max abs difference of two flow composites, over their tolerance."""
+    return float((k - p).abs().max()) / (IMG_ATOL * max(1.0, float(p.abs().max())))
 
 
 def require(ok, what):
@@ -185,7 +215,7 @@ def main():
     from mobgs_tpu_torch.models import gaussians as G
     from mobgs_tpu_torch.models import render as R
     from mobgs_tpu_torch.models.sandwich import init_sandwich
-    from mobgs_tpu_torch.ops import cuda_raster, tiles
+    from mobgs_tpu_torch.ops import cuda_raster, projection, tiles
     from mobgs_tpu_torch.viewer import ViewerServer, make_viewer_render
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -299,8 +329,7 @@ def main():
           f"tile_max {int(e2e_k.tile_max)}")
 
     # ---- the main path: serve, then render; counts read after ----
-    for key in cuda_raster.launches:
-        cuda_raster.launches[key] = 0
+    cuda_raster.reset_launches()
 
     phase("5 serve")
     server = ViewerServer(host="127.0.0.1", port=0)
@@ -408,7 +437,9 @@ def main():
     # ---- the training slice ----
     from mobgs_tpu_torch.config import OptimizationParams
     from mobgs_tpu_torch.models import blce as B
+    from mobgs_tpu_torch.data.cameras import pixel_grid
     from mobgs_tpu_torch.train import loop as L
+    from mobgs_tpu_torch.train import losses
     from mobgs_tpu_torch.train import step as S
 
     phase("7 backward kernel vs plain")
@@ -470,196 +501,274 @@ def main():
                          num_warp=E_WARP, device=dev)
         return S.init_train_state(stat_t, dyn_t, sw, bl)
 
+    names = {"stat": G.DIFF_FIELDS, "dyn": G.DIFF_FIELDS,
+             "sandwich": ("w1", "w2"), "blce": B.BLCE_FIELDS}
+
+    def param_groups(ts):
+        return {"stat": G.split_diff(ts.stat)[0], "dyn": G.split_diff(ts.dyn)[0],
+                "sandwich": S.sandwich_leaves(ts.sandwich),
+                "blce": ts.blce.params.leaves()}
+
+    def step_vs_plain(opt, ts, batch):
+        """One step's loss and gradients through the kernels and through the
+        plain route, same state and batch; returns the kernel route's aux."""
+        groups = param_groups(ts)
+        step_res = {}
+        for backend in ("cuda", "plain"):
+            fwd = S.make_forward(opt, W, H, data.max_time, E_WARP,
+                                 cfg._replace(backend=backend))
+            off = torch.zeros((B_VIEWS, ts.stat.capacity + ts.dyn.capacity, 2),
+                              device=dev, requires_grad=True)
+            total, aux = fwd(ts.stat, ts.dyn, ts.sandwich, ts.blce, off, batch)
+            leaves = [p for grp in groups.values() for p in grp] + [off]
+            grads = torch.autograd.grad(total, leaves, allow_unused=True)
+            step_res[backend] = (float(total.detach()), float(aux["psnr"]),
+                                 {k: float(aux[k].detach()) for k in ("flow", "photo")},
+                                 [torch.zeros_like(p) if gr is None else gr
+                                  for p, gr in zip(leaves, grads)])
+            torch.cuda.synchronize()
+        (lk, pk, ak, gk), (lp, pp, ap, gp) = step_res["cuda"], step_res["plain"]
+        print(f"loss kernels {lk!r} plain {lp!r} (rel {abs(lk - lp) / abs(lp):.3g}); "
+              f"psnr {pk:.4f} / {pp:.4f}; flow term {ak['flow']!r} / {ap['flow']!r}")
+        require(np.isfinite(lk) and abs(lk - lp) <= LOSS_RTOL * abs(lp), "train-step loss")
+        i, worst, n_leaves = 0, {}, 0
+        failed = []
+        for grp, leaves in list(groups.items()) + [("offsets", (None,))]:
+            for j in range(len(leaves)):
+                nm = "offsets" if grp == "offsets" else f"{grp}.{names[grp][j]}"
+                a, b = gk[i], gp[i]
+                i += 1
+                require(bool(torch.isfinite(a).all()), f"{nm} gradient not finite")
+                scale = float(b.abs().max())
+                if scale == 0.0:
+                    require(not a.any(), f"{nm}: kernels give a gradient, plain none")
+                    continue
+                n_leaves += 1
+                r = float((a - b).abs().max()) / scale
+                worst[grp] = max(worst.get(grp, 0.0), r)
+                if r > STEP_REL[grp]:
+                    failed.append(f"{nm} {r:.3g}")
+        print(f"gradient leaves compared: {n_leaves}; worst max|k-p|/max|p| by group: "
+              f"{json.dumps({k: float(f'{v:.3g}') for k, v in worst.items()})}")
+        require(not failed, f"train-step gradients beyond tolerance: {failed}")
+        return ak
+
+    def train_steps(step_fn, ts, sampler, n_warm, n_steps, label, per_step):
+        """Warm up, then time ``n_steps`` synchronised steps with the launch
+        counts set to 0 just before them and read just after; checks the
+        counts per step and that every field with a gradient moved."""
+        before = {f"{grp}.{n}": p.detach().clone()
+                  for grp, ps in param_groups(ts).items() if grp in ("stat", "dyn")
+                  for n, p in zip(G.DIFF_FIELDS, ps)}
+        for _ in range(n_warm):
+            ts, m = step_fn(ts, L.make_batch(data, sampler.next_ids(), dev))
+        torch.cuda.synchronize()
+        cuda_raster.reset_launches()
+        step_s, hist = [], []
+        for k in range(n_steps):
+            b = L.make_batch(data, sampler.next_ids(), dev)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            ts, m = step_fn(ts, b)
+            torch.cuda.synchronize()
+            step_s.append(time.time() - t0)
+            hist.append((float(m.loss), float(m.psnr), float(m.flow), int(m.tile_max)))
+        counts = dict(cuda_raster.launches)
+        by_instance = dict(cuda_raster.instance_launches)
+        rate = n_steps / sum(step_s)
+        for k, (loss, ps, fl, tm) in enumerate(hist):
+            print(f"  step {n_warm + k + 1:2d}: loss {loss:.6f} flow {fl:.6g} psnr {ps:.4f} "
+                  f"tile_max {tm} ({1e3 * step_s[k]:.1f} ms)")
+        require(all(np.isfinite(h[0]) and np.isfinite(h[1]) and np.isfinite(h[2])
+                    for h in hist), "loss, flow or PSNR not finite")
+        print(f"train: {rate:.3f} it/s {label}, B={B_VIEWS} E={E_WARP} {W}x{H}, "
+              f"{ts.stat.capacity}+{ts.dyn.capacity} slots, on {card}; "
+              f"median step {1e3 * float(np.median(step_s)):.1f} ms")
+        print(f"training-path launches {label} ({n_steps} steps): {json.dumps(counts)}; "
+              f"by instance {json.dumps(by_instance)}")
+        for key, n in per_step.items():
+            require(counts[key] == n * n_steps,
+                    f"{key}: {counts[key]} launches {label}, expected {n} per step")
+        moved, still = 0, []
+        for grp in ("stat", "dyn"):
+            opt_state = getattr(ts, f"{grp}_opt")
+            for n, p, mu in zip(G.DIFF_FIELDS, G.split_diff(getattr(ts, grp))[0],
+                                opt_state.mu):
+                if not mu.any():
+                    continue  # no gradient reached this field
+                if torch.equal(p.detach(), before[f"{grp}.{n}"]):
+                    still.append(f"{grp}.{n}")
+                moved += 1
+        print(f"Gaussian fields with a gradient: {moved}, all changed: {not still}")
+        require(moved > 0 and not still, f"fields with a gradient did not change: {still}")
+        return ts, rate, counts, by_instance, hist
+
+    def trace(fn, label):
+        """Device time of one call of ``fn`` by kernel name: the top ten and
+        the compositor kernels wherever they rank."""
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = fn()
+            torch.cuda.synchronize()
+            wall_us = (time.time() - t0) * 1e6
+        by_name = {}
+        for ev in prof.events():
+            if ev.device_type == DeviceType.CUDA:
+                by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+        busy_us = sum(by_name.values())
+        if busy_us:
+            print(f"trace: {wall_us:.0f} us wall per {label}, {busy_us:.0f} us device "
+                  f"busy ({100 * busy_us / wall_us:.1f} %), {len(by_name)} kernel names")
+            ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+            for rank, (name, us) in enumerate(ranked, 1):
+                if rank <= 10 or "raster_" in name:
+                    print(f"  {us:8.1f} us  #{rank:<3d} {name[:90]}")
+        else:
+            print("trace: the profiler recorded no device time (not measured)")
+        return out, busy_us
+
     # bench.py's seesaw overlay: batch 2, flow off
     opt = OptimizationParams(iterations=10_000, batch_size=B_VIEWS, lambda_flow_loss=0.0)
+    # the default configuration (config.py:139): flow on
+    opt_flow = OptimizationParams(iterations=10_000, batch_size=B_VIEWS,
+                                  lambda_flow_loss=LAMBDA_FLOW)
 
     phase("8 train step: kernels vs plain")
     t0 = time.time()
     ts = train_state()
     sampler = L.BatchSampler(FRAMES, B_VIEWS, seed=0)
-    batch = L.make_batch(data, sampler.next_ids(), dev)
-    groups = {"stat": G.split_diff(ts.stat)[0], "dyn": G.split_diff(ts.dyn)[0],
-              "sandwich": S.sandwich_leaves(ts.sandwich),
-              "blce": ts.blce.params.leaves()}
-    names = {"stat": G.DIFF_FIELDS, "dyn": G.DIFF_FIELDS,
-             "sandwich": ("w1", "w2"), "blce": B.BLCE_FIELDS}
-    step_res = {}
-    for backend in ("cuda", "plain"):
-        fwd = S.make_forward(opt, W, H, data.max_time, E_WARP,
-                             cfg._replace(backend=backend))
-        off = torch.zeros((B_VIEWS, ts.stat.capacity + ts.dyn.capacity, 2),
-                          device=dev, requires_grad=True)
-        total, aux = fwd(ts.stat, ts.dyn, ts.sandwich, ts.blce, off, batch)
-        leaves = [p for grp in groups.values() for p in grp] + [off]
-        grads = torch.autograd.grad(total, leaves, allow_unused=True)
-        step_res[backend] = (float(total.detach()), float(aux["psnr"]),
-                             [torch.zeros_like(p) if gr is None else gr
-                              for p, gr in zip(leaves, grads)])
-        torch.cuda.synchronize()
-    (lk, pk, gk), (lp, pp, gp) = step_res["cuda"], step_res["plain"]
-    print(f"loss kernels {lk!r} plain {lp!r} (rel {abs(lk - lp) / abs(lp):.3g}); "
-          f"psnr {pk:.4f} / {pp:.4f}")
-    require(np.isfinite(lk) and abs(lk - lp) <= LOSS_RTOL * abs(lp), "train-step loss")
-    i, worst, n_leaves = 0, {}, 0
-    failed = []
-    for grp, leaves in list(groups.items()) + [("offsets", (None,))]:
-        for j in range(len(leaves)):
-            nm = "offsets" if grp == "offsets" else f"{grp}.{names[grp][j]}"
-            a, b = gk[i], gp[i]
-            i += 1
-            require(bool(torch.isfinite(a).all()), f"{nm} gradient not finite")
-            scale = float(b.abs().max())
-            if scale == 0.0:
-                require(not a.any(), f"{nm}: kernels give a gradient, plain none")
-                continue
-            n_leaves += 1
-            r = float((a - b).abs().max()) / scale
-            worst[grp] = max(worst.get(grp, 0.0), r)
-            if r > STEP_REL[grp]:
-                failed.append(f"{nm} {r:.3g}")
-    print(f"gradient leaves compared: {n_leaves}; worst max|k-p|/max|p| by group: "
-          f"{json.dumps({k: float(f'{v:.3g}') for k, v in worst.items()})}")
-    require(not failed, f"train-step gradients beyond tolerance: {failed}")
+    step_vs_plain(opt, ts, L.make_batch(data, sampler.next_ids(), dev))
     times["step_check_s"] = time.time() - t0
-    del step_res, gk, gp
 
     phase("9 train")
-    step_fn = S.make_train_step(opt, W, H, data.max_time, E_WARP, cfg)
-    before = {f"{grp}.{n}": p.detach().clone() for grp in ("stat", "dyn")
-              for n, p in zip(G.DIFF_FIELDS, groups[grp])}
-    for _ in range(N_WARM):
-        ts, m = step_fn(ts, L.make_batch(data, sampler.next_ids(), dev))
-    torch.cuda.synchronize()
-    for key in cuda_raster.launches:
-        cuda_raster.launches[key] = 0
-    step_s, hist = [], []
-    for k in range(N_STEPS):
-        b = L.make_batch(data, sampler.next_ids(), dev)
-        torch.cuda.synchronize()
-        t0 = time.time()
-        ts, m = step_fn(ts, b)
-        torch.cuda.synchronize()
-        step_s.append(time.time() - t0)
-        hist.append((float(m.loss), float(m.psnr), int(m.tile_max)))
-    train_launches = dict(cuda_raster.launches)
-    rates["train_it_s"] = N_STEPS / sum(step_s)
-    for k, (loss, ps, tm) in enumerate(hist):
-        print(f"  step {N_WARM + k + 1:2d}: loss {loss:.6f} psnr {ps:.4f} "
-              f"tile_max {tm} ({1e3 * step_s[k]:.1f} ms)")
-    require(all(np.isfinite(h[0]) and np.isfinite(h[1]) for h in hist),
-            "loss or PSNR not finite")
-    print(f"train: {rates['train_it_s']:.3f} it/s flow off, B={B_VIEWS} E={E_WARP} "
-          f"{W}x{H}, {ts.stat.capacity}+{ts.dyn.capacity} slots, on {card}; "
-          f"median step {1e3 * float(np.median(step_s)):.1f} ms")
-    print(f"training-path launches ({N_STEPS} steps): {json.dumps(train_launches)}")
     # per view: E-1 latent renders (plain chain) and the mid render (sub chain)
     per_step = {"raster_fwd": B_VIEWS * (E_WARP - 1), "raster_fwd_sub": B_VIEWS,
                 "raster_bwd": B_VIEWS * (E_WARP - 1), "raster_bwd_sub": B_VIEWS}
-    for key, n in per_step.items():
-        require(train_launches[key] == n * N_STEPS,
-                f"{key}: {train_launches[key]} launches, expected {n} per step")
-    moved, still = 0, []
-    for grp in ("stat", "dyn"):
-        opt_state = getattr(ts, f"{grp}_opt")
-        for n, p, mu in zip(G.DIFF_FIELDS, G.split_diff(getattr(ts, grp))[0], opt_state.mu):
-            if not mu.any():
-                continue  # no gradient reached this field
-            if torch.equal(p.detach(), before[f"{grp}.{n}"]):
-                still.append(f"{grp}.{n}")
-            moved += 1
-    print(f"Gaussian fields with a gradient: {moved}, all changed: {not still}")
-    require(moved > 0 and not still, f"fields with a gradient did not change: {still}")
+    step_fn = S.make_train_step(opt, W, H, data.max_time, E_WARP, cfg)
+    ts, rates["train_it_s"], train_launches, _, _ = train_steps(
+        step_fn, ts, sampler, N_WARM, N_STEPS, "flow off", per_step)
+    _, busy = trace(lambda: step_fn(ts, L.make_batch(data, sampler.next_ids(), dev)),
+                    "train step")
+    times["step_device_ms"] = busy / 1e3
 
-    b = L.make_batch(data, sampler.next_ids(), dev)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.time()
-        ts, m = step_fn(ts, b)
-        torch.cuda.synchronize()
-        wall_us = (time.time() - t0) * 1e6
-    by_name = {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us()
-    busy_us = sum(by_name.values())
-    if busy_us:
-        print(f"trace: {wall_us:.0f} us wall per train step, {busy_us:.0f} us device "
-              f"busy ({100 * busy_us / wall_us:.1f} %), {len(by_name)} kernel names")
-        ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
-        # the top ten, and the compositor kernels wherever they rank
-        for rank, (name, us) in enumerate(ranked, 1):
-            if rank <= 10 or "raster_" in name:
-                print(f"  {us:8.1f} us  #{rank:<3d} {name[:90]}")
-    else:
-        print("trace: the profiler recorded no device time (not measured)")
+    phase("10 flow-on train step: kernels vs plain")
+    t0 = time.time()
+    ts_f = train_state()
+    sampler_f = L.BatchSampler(FRAMES, B_VIEWS, seed=1)
+    aux = step_vs_plain(opt_flow, ts_f, L.make_batch(data, sampler_f.next_ids(), dev))
+    require(np.isfinite(aux["flow"]) and aux["flow"] > 0, f"flow term {aux['flow']}")
+    times["flow_step_check_s"] = time.time() - t0
 
-    # ---- kernel timing at protocol shape (launches not counted above) ----
+    phase("11 flow-on train")
+    # per view: E-1 latent renders (plain chain); E-1 exposure-flow passes and
+    # the mid render with 2E flow columns (sub chain)
+    per_step_f = {"raster_fwd": B_VIEWS * (E_WARP - 1), "raster_fwd_sub": B_VIEWS * E_WARP,
+                  "raster_bwd": B_VIEWS * (E_WARP - 1), "raster_bwd_sub": B_VIEWS * E_WARP}
+    flow_fn = S.make_train_step(opt_flow, W, H, data.max_time, E_WARP, cfg)
+    ts_f, rates["train_it_s_flow_on"], flow_launches, flow_instances, hist = train_steps(
+        flow_fn, ts_f, sampler_f, N_FLOW_WARM, N_FLOW_STEPS, "flow on", per_step_f)
+    require(all(h[2] > 0 for h in hist), "a flow-on step has no flow term")
+    mid_ce = 9 + 2 * E_WARP + 2
+    for key, n in ((f"raster_fwd_sub CE={mid_ce}", B_VIEWS), ("raster_fwd_sub CE=11", B_VIEWS * (E_WARP - 1)),
+                   (f"raster_bwd_sub CE={mid_ce}", B_VIEWS), ("raster_bwd_sub CE=11", B_VIEWS * (E_WARP - 1))):
+        require(flow_instances.get(key, 0) == n * N_FLOW_STEPS,
+                f"{key}: {flow_instances.get(key, 0)} launches, expected {n} per step")
+    _, busy = trace(lambda: flow_fn(ts_f, L.make_batch(data, sampler_f.next_ids(), dev)),
+                    "flow-on train step")
+    times["flow_step_device_ms"] = busy / 1e3
+    # the warp loss of one view alone (2E warps of W x H x 3, forward and
+    # backward): images, alphas and coordinates a few pixels off the grid
+    gen = torch.Generator(device=dev).manual_seed(3)
+    pix = pixel_grid(W, H, device=dev)
+    wl_in = [torch.rand(s, generator=gen, device=dev).requires_grad_(True)
+             for s in ((H, W, 3), (E_WARP, H, W, 3), (E_WARP, H, W), (H, W))]
+    wl_co = [(pix + 4 * torch.randn((E_WARP, H, W, 2), generator=gen, device=dev))
+             .requires_grad_(True) for _ in range(2)]
+
+    def warp_loss_fwd_bwd():
+        loss = losses.flow_warp_loss(*wl_in, *wl_co, W, H)
+        return torch.autograd.grad(loss, wl_in + wl_co)
+
+    # ~1,500 small launches: the host's dispatch sets the wall time, so the
+    # device's share is read from the profiler, not from CUDA events
+    warp_loss_fwd_bwd()
+    _, busy = trace(warp_loss_fwd_bwd, f"flow_warp_loss forward + backward of one view "
+                    f"({2 * E_WARP} warps of {W}x{H}x3)")
+    times["warp_loss_view_device_ms"] = busy / 1e3
+
+    phase("12 exposure update")
+    # a batch with an endpoint view; the loop's neighbour arguments
+    # (loop.py:393-403)
+    expo_ids = np.array([0, FRAMES // 2 - 1])
+    nb_fwd = np.minimum(expo_ids + 1, FRAMES - 1)
+    nb_bwd = np.maximum(expo_ids - 1, 0)
+    on = lambda x, dt=torch.float32: torch.as_tensor(np.asarray(x), dtype=dt, device=dev)  # noqa: E731
+    expo_args = (on(expo_ids, torch.int64), on(data.w2c[expo_ids]), on(data.K[expo_ids]),
+                 on(data.time[expo_ids]), on(data.blur_feats[expo_ids]), on(data.w2c[nb_fwd]),
+                 on(data.w2c[nb_bwd]), on((expo_ids == 0) | (expo_ids == FRAMES - 1), torch.bool))
+    old = ts_f.blce.exposure_expo.clone()
+    new = {}
+    for backend in ("cuda", "plain"):
+        upd = S.make_exposure_update(W, H, data.max_time, E_WARP, cfg._replace(backend=backend))
+        new[backend] = upd(ts_f, *expo_args).blce.exposure_expo
+    torch.cuda.synchronize()
+    ek, ep = new["cuda"], new["plain"]
+    expo_rel = float(((ek - ep).abs() / ep.abs().clamp(min=1e-30)).max())
+    print(f"exposures at views {expo_ids.tolist()}: kernels {ek[expo_ids].tolist()} plain "
+          f"{ep[expo_ids].tolist()} (was {old[expo_ids].tolist()}); "
+          f"max rel diff {expo_rel:.3g}")
+    require(bool(torch.isfinite(ek).all()), "exposures not finite")
+    require(expo_rel <= EXPO_RTOL, f"exposure update kernels vs plain {expo_rel:.3g}")
+    rest = torch.ones(FRAMES, dtype=torch.bool, device=dev)
+    rest[expo_ids] = False
+    require(torch.equal(ek[rest], old[rest]) and torch.equal(ts_f.blce.exposure_expo, old),
+            "the update wrote outside the batch's views")
+    expo_fn = S.make_exposure_update(W, H, data.max_time, E_WARP, cfg)
+    expo_fn(ts_f, *expo_args)
+    torch.cuda.synchronize()
+    cuda_raster.reset_launches()
+    t0 = time.time()
+    for _ in range(N_EXPO):
+        ts_e = expo_fn(ts_f, *expo_args)
+    torch.cuda.synchronize()
+    rates["exposure_update_per_s"] = N_EXPO / (time.time() - t0)
+    expo_launches = dict(cuda_raster.launches)
+    expo_instances = dict(cuda_raster.instance_launches)
+    print(f"exposure update: {rates['exposure_update_per_s']:.2f} calls/s at B={B_VIEWS}; "
+          f"launches ({N_EXPO} calls): {json.dumps(expo_instances)}")
+    require(expo_launches == {"raster_fwd": 2 * B_VIEWS * N_EXPO, "raster_fwd_sub": 0,
+                              "raster_bwd": 0, "raster_bwd_sub": 0}
+            and expo_instances == {"raster_fwd CE=4": 2 * B_VIEWS * N_EXPO},
+            f"exposure-update launches {expo_launches}")
+    require(torch.equal(ts_e.blce.exposure_expo, ek), "the update does not repeat")
+    trace(lambda: expo_fn(ts_f, *expo_args), "exposure update")
+
+    phase("13 kernel timing")
+    # launches of this phase are not counted above
     entries = []
 
-    def entry(key, ms, plain_ms, ops, bytes_, err):
-        bound_ms = max(ops / PEAK_F32, bytes_ / PEAK_BYTES) * 1e3
-        entries.append({
-            "name": key, "route": "cuda",
-            "source": SOURCES["raster_bwd" if "bwd" in key else "raster_fwd"],
-            "replaces": REPLACES[key], "launches": train_launches[key],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": "operations" if ops / PEAK_F32 >= bytes_ / PEAK_BYTES else "bytes",
-            "library_ms": None,
-        })
-        return bound_ms
-
-    # the default render (CE=11) and the mid render's fused sub chain are
-    # the table's entries; the latent render (CE=9 image-only, 16 launches
-    # per train step) is printed on its own line
-    ext11 = torch.cat([geom.colors, splats.depths[:, None], ones], 1).detach().contiguous()
-    for key, case, col in (("raster_fwd", "a_default_ce11", ext11),
-                           ("raster_fwd_sub", "b_fused_sub", ext11),
-                           ("raster_fwd", "d_image_only_ce9",
-                            geom.colors.detach().contiguous())):
-        sub = key == "raster_fwd_sub"
-        rec = cuda_raster.pack_records(splats, geom.opacity,
-                                       sub_op if sub else None).detach()
+    def fwd_cost(ids_, cnt_, rec, col, sub):
+        """Operations and bytes the forward needs on these inputs."""
+        work = {}
         with torch.no_grad():
-            ms = cuda_ms(lambda: cuda_raster.composite_fwd(ids, cnt, rec, col, ntx, sub), 50)
-            work = {}
-            cuda_raster.composite_tiles_plain(ids, cnt, rec, col, ntx, sub, work=work)
-            plain_ms = cuda_ms(lambda: cuda_raster.composite_tiles_plain(
-                ids, cnt, rec, col, ntx, sub), 5)
-        CE = col.shape[1]
+            cuda_raster.composite_tiles_plain(ids_, cnt_, rec, col, ntx, sub, work=work)
+        T_, CE = ids_.shape[0], col.shape[1]
         pairs = int(work["slots"].sum()) * cuda_raster.P
         # per live (slot, pixel) pair: dx, dy, sigma (11), exp (1), alpha (2),
         # transmittance (2); per kept pair: weight (2) and CE multiply-adds
         ops = pairs * 16 + int(work["valid"]) * (2 + 2 * CE)
         n_ref = int(work["n_ref"])
-        bytes_ = 4 * (int(work["slots"].sum()) + T_tiles + n_ref * (6 + CE)
-                      + T_tiles * 256 * CE)
+        bytes_ = 4 * (int(work["slots"].sum()) + T_ + n_ref * (6 + CE) + T_ * 256 * CE)
         if sub:
             ops += pairs * 4 + int(work["valid_sub"]) * 3
-            bytes_ += 4 * (n_ref + T_tiles * 256)
-        err = max(errs[case].get(k2, 0.0) for k2 in ("image", "alpha", "sub_alpha"))
-        if case == "d_image_only_ce9":
-            bound_ms = max(ops / PEAK_F32, bytes_ / PEAK_BYTES) * 1e3
-            print(f"{key} CE=9 image-only (the training path's latent render): "
-                  f"{ms:.4f} ms kernel, {plain_ms:.3f} ms plain, bound {bound_ms:.4f} ms "
-                  f"({100 * bound_ms / ms:.1f} % of bound; {ops / 1e9:.3f} GOP, "
-                  f"{bytes_ / 1e6:.2f} MB, {pairs} pairs)")
-            continue
-        bound_ms = entry(key, ms, plain_ms, ops, bytes_, err)
-        print(f"{key}: {ms:.4f} ms kernel, {plain_ms:.3f} ms plain, bound "
-              f"{bound_ms:.4f} ms ({ops / 1e9:.3f} GOP, {bytes_ / 1e6:.2f} MB, "
-              f"{pairs} pairs, T={T_tiles}, K={ids.shape[1]}, CE={CE})")
+            bytes_ += 4 * (n_ref + T_ * 256)
+        return ops, bytes_, pairs, work
 
-    for key, case in (("raster_bwd", "a_latent_ce9"), ("raster_bwd_sub", "b_mid_ce11_sub")):
-        args = bwd_inputs[case]
-        _, _, rec, col, _, _, _, _, _, sub = args
-        ms = cuda_ms(lambda: cuda_raster.composite_bwd(*args), 50)
-        plain_ms = cuda_ms(lambda: cuda_raster.composite_bwd_plain(*args), 5)
-        work = {}
-        with torch.no_grad():
-            cuda_raster.composite_tiles_plain(ids, cnt, rec, col, ntx, sub, work=work)
-        CE = col.shape[1]
-        pairs = int(work["slots"].sum()) * cuda_raster.P
+    def bwd_cost(ids_, cnt_, rec, col, sub):
+        """Operations and bytes the backward needs on these inputs."""
+        _, _, pairs, work = fwd_cost(ids_, cnt_, rec, col, sub)
+        T_, CE = ids_.shape[0], col.shape[1]
         n_ref = int(work["n_ref"])
         rows = 7 if sub else 6
         # per live pair the replay of the forward (16); per kept pair: T_i,
@@ -671,22 +780,145 @@ def main():
         # and g read once, the zeroed gradient tables written once, and a
         # read-modify-write of each referenced Gaussian's gradient row
         N_all = rec.shape[0]
-        bytes_ = 4 * (int(work["slots"].sum()) + T_tiles + n_ref * (rows + CE)
-                      + 2 * T_tiles * 256 * CE + N_all * (cuda_raster.R + CE)
+        bytes_ = 4 * (int(work["slots"].sum()) + T_ + n_ref * (rows + CE)
+                      + 2 * T_ * 256 * CE + N_all * (cuda_raster.R + CE)
                       + 2 * n_ref * (rows + CE))
         if sub:
             # the subset chain: alpha and transmittance per live pair, 14 per
             # kept pair and its sum over pixels; out2 and g2 read once
             ops += pairs * 4 + int(work["valid_sub"]) * 15
-            bytes_ += 4 * 2 * T_tiles * 256
-        bound_ms = entry(key, ms, plain_ms, ops, bytes_, bwd_errs[case])
+            bytes_ += 4 * 2 * T_ * 256
+        return ops, bytes_, pairs, work
+
+    def bound(ops, bytes_):
+        return max(ops / PEAK_F32, bytes_ / PEAK_BYTES) * 1e3
+
+    def entry(key, ms, plain_ms, ops, bytes_, err):
+        entries.append({
+            "name": key, "route": "cuda",
+            "source": SOURCES["raster_bwd" if "bwd" in key else "raster_fwd"],
+            "replaces": REPLACES[key], "launches": train_launches[key],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound(ops, bytes_),
+            "bound_by": "operations" if ops / PEAK_F32 >= bytes_ / PEAK_BYTES else "bytes",
+            "library_ms": None,
+        })
+
+    def time_fwd(ids_, cnt_, rec, col, sub):
+        with torch.no_grad():
+            ms = cuda_ms(lambda: cuda_raster.composite_fwd(ids_, cnt_, rec, col, ntx, sub), 50)
+            plain_ms = cuda_ms(lambda: cuda_raster.composite_tiles_plain(
+                ids_, cnt_, rec, col, ntx, sub), 5)
+        return ms, plain_ms
+
+    def instance_line(label, ms, plain_ms, ops, bytes_, pairs, CE, launches):
+        b = bound(ops, bytes_)
+        print(f"{label}: {ms:.4f} ms kernel, {plain_ms:.3f} ms plain, bound {b:.4f} ms "
+              f"({100 * b / ms:.1f} % of bound; {ops / 1e9:.3f} GOP, {bytes_ / 1e6:.2f} MB, "
+              f"{pairs} pairs, CE={CE}); flow-on launches: {launches}")
+
+    # the default render (CE=11) and the mid render's fused sub chain are
+    # the table's entries; the other instances the training paths launch
+    # are printed on lines of their own
+    ext11 = torch.cat([geom.colors, splats.depths[:, None], ones], 1).detach().contiguous()
+    for key, case, col in (("raster_fwd", "a_default_ce11", ext11),
+                           ("raster_fwd_sub", "b_fused_sub", ext11)):
+        sub = key == "raster_fwd_sub"
+        rec = cuda_raster.pack_records(splats, geom.opacity, sub_op if sub else None).detach()
+        ms, plain_ms = time_fwd(ids, cnt, rec, col, sub)
+        ops, bytes_, pairs, _ = fwd_cost(ids, cnt, rec, col, sub)
+        err = max(errs[case].get(k2, 0.0) for k2 in ("image", "alpha", "sub_alpha"))
+        entry(key, ms, plain_ms, ops, bytes_, err)
+        print(f"{key}: {ms:.4f} ms kernel, {plain_ms:.3f} ms plain, bound "
+              f"{bound(ops, bytes_):.4f} ms ({ops / 1e9:.3f} GOP, {bytes_ / 1e6:.2f} MB, "
+              f"{pairs} pairs, T={T_tiles}, K={ids.shape[1]}, CE={col.shape[1]})")
+
+    rec_plain = cuda_raster.pack_records(splats, geom.opacity).detach()
+    col9 = geom.colors.detach().contiguous()
+    ms, plain_ms = time_fwd(ids, cnt, rec_plain, col9, False)
+    ops, bytes_, pairs, _ = fwd_cost(ids, cnt, rec_plain, col9, False)
+    instance_line("raster_fwd CE=9 image-only (latent render)", ms, plain_ms, ops, bytes_,
+                  pairs, 9, flow_instances.get("raster_fwd CE=9", 0))
+
+    # the exposure-flow pass: colours and this view's flow to the first
+    # exposure's geometry as two columns, the dynamic chain, no depth or
+    # weight column (CE = 9 + 2)
+    _, splats_e = R.assemble_project(stat, dyn, cam(0), W, H, data.max_time, -1.0, cfg)
+    col_flow = torch.cat([geom.colors, splats.means2d - splats_e.means2d], 1).detach().contiguous()
+    rec_sub = cuda_raster.pack_records(splats, geom.opacity, sub_op).detach()
+    with torch.no_grad():
+        k = cuda_raster.composite_fwd(ids, cnt, rec_sub, col_flow, ntx, True)
+        p = cuda_raster.composite_tiles_plain(ids, cnt, rec_sub, col_flow, ntx, True)
+    errs_f = {"image": float((k[0][..., :9] - p[0][..., :9]).abs().max()),
+              "sub_alpha": float((k[1] - p[1]).abs().max()),
+              "flow/tol": flow_err(k[0][..., 9:], p[0][..., 9:])}
+    print(f"raster_fwd_sub CE=11 exposure-flow pass vs plain: {json.dumps(errs_f)}")
+    require(errs_f["image"] <= IMG_ATOL and errs_f["sub_alpha"] <= IMG_ATOL
+            and errs_f["flow/tol"] <= 1.0, f"exposure-flow pass forward {errs_f}")
+    ms, plain_ms = time_fwd(ids, cnt, rec_sub, col_flow, True)
+    ops, bytes_, pairs, _ = fwd_cost(ids, cnt, rec_sub, col_flow, True)
+    instance_line("raster_fwd_sub CE=11 exposure-flow pass", ms, plain_ms, ops, bytes_,
+                  pairs, 11, flow_instances.get("raster_fwd_sub CE=11", 0))
+
+    # the flow-on mid render, forward and backward (phase 7's operands)
+    args29 = bwd_inputs["d_flow_mid_ce29_sub"]
+    _, _, rec29, col29, *_ = args29
+    ms, plain_ms = time_fwd(ids, cnt, rec29, col29, True)
+    ops, bytes_, pairs, _ = fwd_cost(ids, cnt, rec29, col29, True)
+    instance_line("raster_fwd_sub CE=29 flow-on mid render", ms, plain_ms, ops, bytes_,
+                  pairs, 29, flow_instances.get("raster_fwd_sub CE=29", 0))
+    ms = cuda_ms(lambda: cuda_raster.composite_bwd(*args29), 50)
+    plain_ms = cuda_ms(lambda: cuda_raster.composite_bwd_plain(*args29), 5)
+    ops, bytes_, pairs, _ = bwd_cost(ids, cnt, rec29, col29, True)
+    instance_line("raster_bwd_sub CE=29 flow-on mid render (with the zeroed outputs)", ms,
+                  plain_ms, ops, bytes_, pairs, 29,
+                  flow_instances.get("raster_bwd_sub CE=29", 0))
+
+    # get_flow_static's composite: the static set at the view's camera, the
+    # flow between its neighbours' cameras, depth and weight (CE = 2 + 2)
+    s_means, s_quats = stat.xyz, G.act_rotation(stat.rotation)
+    s_scales, s_opac = G.act_scaling(stat), G.act_opacity(stat)
+
+    def proj(c):
+        return projection.project(s_means, s_quats, s_scales, c.w2c, c.K, W, H,
+                                  eps2d=cfg.eps2d, near=cfg.near, sigma_cut=cfg.sigma_cut)
+
+    s_splats = proj(cam(0))
+    s_bins = tiles.bin_gaussians(s_splats, W, H, tiles_per_gauss=cfg.tiles_per_gauss,
+                                 max_per_tile=cfg.max_per_tile)
+    ids4, cnt4 = s_bins.gauss_ids.contiguous(), s_bins.counts.contiguous()
+    col4 = torch.cat([proj(cam(1)).means2d - proj(cam(2)).means2d, s_splats.depths[:, None],
+                      torch.ones(len(s_means), 1, device=dev)], 1).detach().contiguous()
+    rec4 = cuda_raster.pack_records(s_splats, s_opac).detach()
+    with torch.no_grad():
+        k = cuda_raster.composite_fwd(ids4, cnt4, rec4, col4, ntx)[0]
+        p = cuda_raster.composite_tiles_plain(ids4, cnt4, rec4, col4, ntx)[0]
+    errs4 = {"flow/tol": flow_err(k[..., :2], p[..., :2]),
+             "alpha": float((k[..., 3] - p[..., 3]).abs().max()),
+             "flow max px": float(p[..., :2].abs().max())}
+    print(f"raster_fwd CE=4 get_flow_static vs plain: {json.dumps(errs4)}")
+    require(errs4["flow/tol"] <= 1.0 and errs4["alpha"] <= IMG_ATOL,
+            f"get_flow_static forward {errs4}")
+    ms, plain_ms = time_fwd(ids4, cnt4, rec4, col4, False)
+    ops, bytes_, pairs, _ = fwd_cost(ids4, cnt4, rec4, col4, False)
+    instance_line("raster_fwd CE=4 get_flow_static", ms, plain_ms, ops, bytes_, pairs, 4,
+                  f"{expo_instances.get('raster_fwd CE=4', 0)} in {N_EXPO} exposure updates")
+
+    for key, case in (("raster_bwd", "a_latent_ce9"), ("raster_bwd_sub", "b_mid_ce11_sub")):
+        args = bwd_inputs[case]
+        _, _, rec, col, _, _, _, _, _, sub = args
+        ms = cuda_ms(lambda: cuda_raster.composite_bwd(*args), 50)
+        plain_ms = cuda_ms(lambda: cuda_raster.composite_bwd_plain(*args), 5)
+        ops, bytes_, pairs, work = bwd_cost(ids, cnt, rec, col, sub)
+        entry(key, ms, plain_ms, ops, bytes_, bwd_errs[case])
         print(f"{key}: {ms:.4f} ms kernel (with the zeroed outputs), {plain_ms:.3f} ms "
-              f"plain, bound {bound_ms:.4f} ms ({ops / 1e9:.3f} GOP, {bytes_ / 1e6:.2f} MB, "
-              f"{pairs} pairs, {int(work['valid'])} kept, T={T_tiles}, CE={CE})")
+              f"plain, bound {bound(ops, bytes_):.4f} ms ({ops / 1e9:.3f} GOP, "
+              f"{bytes_ / 1e6:.2f} MB, {pairs} pairs, {int(work['valid'])} kept, "
+              f"T={T_tiles}, CE={col.shape[1]})")
     print(f"times: {json.dumps({k: round(v, 2) for k, v in times.items()})}")
     print(f"rates: {json.dumps(rates)}")
 
-    phase("10 result")
+    phase("14 result")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

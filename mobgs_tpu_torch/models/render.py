@@ -3,8 +3,9 @@
 
 Each (camera, time) evaluation is one projection and one binning, with
 subset passes (dynamic-only, static-only) as opacity masks over the same
-tiles. ``get_flow`` / ``get_flow_static`` and the camera-shared static
-binning (``shared=``) come with later slices.
+tiles; optical flow is a 2D displacement composited as extra colour
+columns. The camera-shared static binning (``shared=``) comes with a later
+slice (``shared_static`` is off by default in the JAX package).
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from typing import NamedTuple
 
 import torch
 
-from mobgs_tpu_torch.data.cameras import Camera, cam_rays
+from mobgs_tpu_torch.data.cameras import Camera, cam_rays, pixel_grid
 from mobgs_tpu_torch.models import gaussians as G
 from mobgs_tpu_torch.models.sandwich import SandwichParams, apply_sandwich
 from mobgs_tpu_torch.ops import projection
@@ -232,3 +233,61 @@ def project_combined(stat: G.GaussianState, dyn: G.GaussianState,
     _, splats = assemble_project(stat, dyn, cam, width, height, max_time,
                                  delta_exposure, config)
     return splats.means2d
+
+
+def get_flow(stat: G.GaussianState, dyn: G.GaussianState,
+             sandwich: SandwichParams, cam: Camera,
+             width: int, height: int, bg3: torch.Tensor,
+             delta_exposure, max_time: float = 1.0,
+             config: RasterConfig = RasterConfig()):
+    """Exposure↔mid flow maps and the latent image and alpha
+    (``render.py:280-310``): an exposure-time pass with channels
+    [feat9 ‖ exp2mid flow] and the dynamic pass, and a mid-time pass with
+    [feat9 ‖ mid2exp flow].
+
+    Returns (exp2mid_coord [H,W,2], mid2exp_coord [H,W,2],
+             latent_img [H,W,3], latent_alpha [H,W]).
+    """
+    mid2d = project_combined(stat, dyn, cam, width, height, max_time, None,
+                             config)
+    exp2d = project_combined(stat, dyn, cam, width, height, max_time,
+                             delta_exposure, config)
+    flow2d = (mid2d - exp2d).detach()  # exp→mid displacement
+
+    exp_out = render_view(stat, dyn, sandwich, cam, width, height, bg3,
+                          max_time, delta_exposure, get_dynamic=True,
+                          extra_colors=flow2d, config=config)
+    mid_out = render_view(stat, dyn, sandwich, cam, width, height, bg3,
+                          max_time, None, extra_colors=-flow2d, config=config)
+
+    pix = pixel_grid(width, height, use_center=False, device=flow2d.device)
+    exp2mid_coord = pix + exp_out.flow
+    mid2exp_coord = pix + mid_out.flow
+    return exp2mid_coord, mid2exp_coord, exp_out.image, exp_out.d_alpha
+
+
+def get_flow_static(stat: G.GaussianState, source_cam: Camera,
+                    target_cam: Camera, splat_cam: Camera,
+                    width: int, height: int,
+                    config: RasterConfig = RasterConfig()):
+    """Camera-induced flow from the static Gaussians (``render.py:313-336``):
+    project the static set in the source and target views and composite the
+    2D displacement from the splat camera, with no background and the depth
+    and weight columns on (CE = 2 + 2). Returns (flow2d [N,2],
+    rendered_flow [H,W,2])."""
+    s_means = stat.xyz
+    s_quats = G.act_rotation(stat.rotation)
+    s_scales = G.act_scaling(stat)
+    s_opac = G.act_opacity(stat)
+
+    def proj2d(cam):
+        spl = projection.project(s_means, s_quats, s_scales, cam.w2c, cam.K,
+                                 width, height, eps2d=config.eps2d,
+                                 near=config.near, sigma_cut=config.sigma_cut)
+        return spl.means2d
+
+    flow2d = proj2d(source_cam) - proj2d(target_cam)
+    out = rasterize(s_means, s_quats, s_scales, s_opac, flow2d,
+                    splat_cam.w2c, splat_cam.K, width, height,
+                    background=None, config=config)
+    return flow2d, out.images[0]

@@ -71,10 +71,26 @@ ALPHA_MAX = 0.99
 ALPHA_MIN = 1.0 / 255.0
 TRANS_EPS = 1e-4
 
-# Launch counts of the kernels, by name. The wrappers add one per launch and
-# nowhere else; a run reads them to show its path went through the kernels.
+# Launch counts of the kernels, by name, and of their instances, by name and
+# channel count ("raster_fwd_sub CE=29"). The wrappers add one to each per
+# launch and nowhere else; a run reads them to show its path went through
+# the kernels.
 launches = {"raster_fwd": 0, "raster_fwd_sub": 0,
             "raster_bwd": 0, "raster_bwd_sub": 0}
+instance_launches: dict[str, int] = {}
+
+
+def _count(name: str, CE: int):
+    launches[name] += 1
+    key = f"{name} CE={CE}"
+    instance_launches[key] = instance_launches.get(key, 0) + 1
+
+
+def reset_launches():
+    """Set every launch count to 0."""
+    for key in launches:
+        launches[key] = 0
+    instance_launches.clear()
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 KERNELS = ("raster_fwd", "raster_bwd")  # csrc/<name>.cu, entry point <name>
@@ -227,7 +243,7 @@ def _launch(ids, counts, rec, col, ntx: int, sub: bool):
                              T, K, CE, ntx, _pick_chunk(K), int(sub), _stream(dev))
     if err != 0:
         raise RuntimeError(f"raster_fwd launch failed: CUDA error {err}")
-    launches["raster_fwd_sub" if sub else "raster_fwd"] += 1
+    _count("raster_fwd_sub" if sub else "raster_fwd", CE)
     return out, out2
 
 
@@ -253,7 +269,7 @@ def _launch_bwd(ids, counts, rec, col, out, out2, g, g2, ntx: int, sub: bool):
                              T, K, CE, ntx, _pick_chunk(K), int(sub), _stream(dev))
     if err != 0:
         raise RuntimeError(f"raster_bwd launch failed: CUDA error {err}")
-    launches["raster_bwd_sub" if sub else "raster_bwd"] += 1
+    _count("raster_bwd_sub" if sub else "raster_bwd", CE)
     return grad_rec, grad_col
 
 

@@ -1,5 +1,5 @@
-"""The fine-stage training step (port of ``mobgs_tpu/train/step.py``), flow
-off.
+"""The fine-stage training step and the exposure re-estimation (port of
+``mobgs_tpu/train/step.py``).
 
 One step renders, per view of the camera batch, the E-1 latent sharp images
 at the BLCE-predicted poses (image only, ``want_depth=False,
@@ -10,18 +10,26 @@ average into the synthetic blurry prediction. Loss (``step.py:361-372``):
 
   photo = L1(pred, gt) + λ_dssim (1 − SSIM(pred, gt))
   reg   = 0.2 L1(depth, gt_depth) + 1e-7 (entropy + sparsity)(dynamic alpha)
+          + λ_flow Σ_views flow_warp_loss
+
+With flow on (``lambda_flow_loss > 0`` and the latents on), each latent
+render has an exposure-flow pass beside it: the combined set at the fixed
+time shift ``(e - half)/half`` (not BLCE's exposure), projected at the
+view's own camera and composited with its exp→mid flow as two extra
+colour columns and the dynamic chain (CE = 9 + 2 with the sub chain); the
+mid render carries the mid→exp flow of every exposure as 2·E extra columns
+(CE = 9 + 18 + depth + weight = 29 with the sub chain at E=9). The flow
+colours are detached; the flow pass's geometry is not, so the warp loss
+reaches it through the composite.
 
 Then the gradients of every Gaussian field, the Sandwich weights, the BLCE
 parameters (global-norm clipped to 1) and the offsets; densify statistics
 from the offsets' gradient scaled by (W/2, H/2); and Adam on each group.
 The views and exposures are Python loops; the compositing runs through the
-hand-written kernels for CUDA tensors (16 + 2 forward and 16 + 2 backward
-launches per step at B=2, E=9).
-
-The step updates the state in place (parameters and Adam moments) and
-returns it with new statistics and step count. The flow-warp loss
-(``lambda_flow_loss > 0``) comes with slice 3 of the port; asking for it
-raises.
+hand-written kernels for CUDA tensors (per step at B=2, E=9: 16 + 2
+forward and 16 + 2 backward launches flow off, 16 + 18 and 16 + 18 flow
+on). The step updates the state in place (parameters and Adam moments) and
+returns it with new statistics and step count.
 """
 
 from __future__ import annotations
@@ -33,7 +41,7 @@ import torch
 
 from mobgs_tpu_torch.core import se3
 from mobgs_tpu_torch.core.image import psnr
-from mobgs_tpu_torch.data.cameras import Camera
+from mobgs_tpu_torch.data.cameras import Camera, pixel_grid
 from mobgs_tpu_torch.models import blce as B
 from mobgs_tpu_torch.models import gaussians as G
 from mobgs_tpu_torch.models import render as R
@@ -103,35 +111,39 @@ def make_forward(opt_cfg, width: int, height: int, max_time: float,
                  num_warp: int = 9, raster_cfg: RasterConfig = RasterConfig(),
                  use_blce: bool = True, with_latents: bool = True,
                  with_exposure_delta: bool = True):
-    """The differentiated core of the step (``step.py:124-380``) with flow
-    off: ``forward(stat, dyn, sandwich, blce, offsets, batch)`` returns
-    (total loss, aux).
+    """The differentiated core of the step (``step.py:124-380``):
+    ``forward(stat, dyn, sandwich, blce, offsets, batch)`` returns (total
+    loss, aux).
 
     Args:
       use_blce: latent poses from BLCE; otherwise every latent render uses
         the view's own camera and zero exposure shift.
-      with_latents: False before ``start_warp``: no latent renders, the
-        prediction is the mid render alone.
+      with_latents: False before ``start_warp``: no latent renders and no
+        flow term, the prediction is the mid render alone.
       with_exposure_delta: False before ``start_warp_dynamic``: latent
-        renders keep the warped poses but no exposure time shift.
+        renders keep the warped poses but no exposure time shift (the flow
+        passes keep their fixed shifts either way).
     """
-    if opt_cfg.lambda_flow_loss > 0 and with_latents:
-        raise NotImplementedError(
-            "lambda_flow_loss > 0: the flow-warp loss comes with slice 3 of "
-            "the port; set lambda_flow_loss=0 for the flow-off step")
     E = num_warp
     half = E // 2
     others = [e for e in range(E) if e != half]
     lambda_dssim = opt_cfg.lambda_dssim
+    lambda_flow = opt_cfg.lambda_flow_loss
+    compute_flow = lambda_flow > 0 and with_latents
+    # the flow passes' fixed exposure-time shifts (step.py:198-199)
+    ratios = [(e - half) / half for e in range(E)] if compute_flow else None
 
     def forward(stat, dyn, sandwich, blce_state, offsets, batch: Batch):
         dev = stat.xyz.device
         bg3 = torch.zeros(3, dtype=torch.float32, device=dev)
-        preds, depths, d_alphas, radii, tile_maxes = [], [], [], [], []
+        preds, depths, d_alphas, radii, tile_maxes, flow_ls = [], [], [], [], [], []
         for b in range(batch.view_idx.shape[0]):
             w2c, K, time = batch.w2c[b], batch.K[b], batch.time[b]
             cam = Camera(w2c=w2c, K=K, time=time)
-            lat_imgs = []
+            lat_imgs, f_imgs, f_alphas, f_e2m, flow2d_o = [], [], [], [], []
+            if compute_flow:
+                mid2d = R.project_combined(stat, dyn, cam, width, height,
+                                           max_time, None, raster_cfg).detach()
             if with_latents:
                 if use_blce:
                     lat_c2w, expo = B.latent_poses(
@@ -141,8 +153,8 @@ def make_forward(opt_cfg, width: int, height: int, max_time: float,
                 else:
                     lat_w2c = w2c.expand(E, 4, 4)
                     expo = torch.zeros(E, dtype=torch.float32, device=dev)
-                # latent renders, image only (train.py:502-541)
                 for e in others:
+                    # latent render, image only (train.py:502-541)
                     lat = R.render_view(
                         stat, dyn, sandwich, Camera(w2c=lat_w2c[e], K=K, time=time),
                         width, height, bg3, max_time,
@@ -150,10 +162,39 @@ def make_forward(opt_cfg, width: int, height: int, max_time: float,
                         want_depth=False, want_alpha=False, config=raster_cfg)
                     lat_imgs.append(lat.image)
                     tile_maxes.append(torch.as_tensor(lat.tile_max))
+                    if not compute_flow:
+                        continue
+                    # exposure-flow pass at the view's own camera and the
+                    # exposure-time geometry (train.py:564-584): image, exp→mid
+                    # flow columns and the dynamic alpha
+                    geom_f, splats_f = R.assemble_project(
+                        stat, dyn, cam, width, height, max_time, ratios[e],
+                        raster_cfg)
+                    flow2d_e = (mid2d - splats_f.means2d).detach()
+                    fout = R.render_view(
+                        stat, dyn, sandwich, cam, width, height, bg3, max_time,
+                        get_dynamic=True, extra_colors=flow2d_e,
+                        subset_alpha_only=True, want_depth=False,
+                        want_alpha=False, precomputed=(geom_f, splats_f),
+                        config=raster_cfg)
+                    tile_maxes.append(torch.as_tensor(fout.tile_max))
+                    f_imgs.append(fout.image)
+                    f_alphas.append(fout.d_alpha)
+                    f_e2m.append(fout.flow)
+                    flow2d_o.append(flow2d_e)
+
+            mid_extra = None
+            if compute_flow:
+                # mid→exposure flow colours ride the mid render as 2·E extra
+                # columns, (x, y) per exposure; the mid exposure's are zero
+                flow2d = torch.stack(flow2d_o[:half] + [torch.zeros_like(mid2d)]
+                                     + flow2d_o[half:])              # [E, N, 2]
+                mid_extra = (-flow2d).permute(1, 0, 2).reshape(-1, 2 * E)
             # mid render at the view's camera (train.py:441-469)
             mid = R.render_view(stat, dyn, sandwich, cam, width, height, bg3,
                                 max_time, None, get_static=False,
                                 get_dynamic=True, means2d_offset=offsets[b],
+                                extra_colors=mid_extra,
                                 subset_alpha_only=True, config=raster_cfg)
             tile_maxes.append(torch.as_tensor(mid.tile_max))
             if with_latents:
@@ -165,6 +206,21 @@ def make_forward(opt_cfg, width: int, height: int, max_time: float,
             d_alphas.append(mid.d_alpha)
             radii.append(mid.radii)
 
+            if compute_flow:
+                # exposure flow consistency (train.py:564-584); the mid
+                # exposure is the mid render itself
+                pix = pixel_grid(width, height, use_center=False, device=dev)
+                m2e = mid.flow.reshape(height, width, E, 2).permute(2, 0, 1, 3)
+                zrow = torch.zeros((height, width, 2), dtype=torch.float32,
+                                   device=dev)
+                lat_f_imgs = torch.stack(f_imgs[:half] + [mid.image] + f_imgs[half:])
+                lat_alphas = torch.stack(f_alphas[:half] + [mid.d_alpha]
+                                         + f_alphas[half:])
+                e2m = torch.stack(f_e2m[:half] + [zrow] + f_e2m[half:])
+                flow_ls.append(losses.flow_warp_loss(
+                    mid.image, lat_f_imgs, lat_alphas, mid.d_alpha,
+                    pix[None] + e2m, pix[None] + m2e, width, height))
+
         pred = torch.stack(preds).permute(0, 3, 1, 2)     # [B, 3, H, W]
         gt = batch.image.permute(0, 3, 1, 2)
         l1 = losses.l1_loss(pred, gt)
@@ -174,10 +230,14 @@ def make_forward(opt_cfg, width: int, height: int, max_time: float,
         d_alpha = torch.stack(d_alphas)
         mask_l = 1e-7 * (losses.entropy_loss(d_alpha)
                          + losses.sparsity_loss(d_alpha))
-        total = photo + 0.2 * depth_l1 + mask_l
+        if compute_flow:
+            flow_l = lambda_flow * torch.stack(flow_ls).sum()
+        else:
+            flow_l = torch.zeros((), dtype=torch.float32, device=dev)
+        total = photo + (0.2 * depth_l1 + mask_l + flow_l)
         psnr_v = torch.mean(psnr(pred.detach(), gt))
         aux = dict(radii=torch.stack(radii), photo=photo, depth_l1=depth_l1,
-                   mask=mask_l, flow=torch.zeros((), device=dev), psnr=psnr_v,
+                   mask=mask_l, flow=flow_l, psnr=psnr_v,
                    tile_max=torch.stack(tile_maxes).amax())
         return total, aux
 
@@ -191,8 +251,8 @@ def make_train_step(opt_cfg, width: int, height: int, max_time: float,
                     with_latents: bool = True,
                     with_exposure_delta: bool = True):
     """Build the per-iteration update ``train_step(ts, batch) -> (ts,
-    Metrics)`` (``step.py:383-474``), flow off. It runs on the device the
-    state lives on."""
+    Metrics)`` (``step.py:383-474``). It runs on the device the state lives
+    on."""
     forward = make_forward(opt_cfg, width, height, max_time, num_warp,
                            raster_cfg, use_blce, with_latents,
                            with_exposure_delta)
@@ -263,8 +323,61 @@ def make_train_step(opt_cfg, width: int, height: int, max_time: float,
                              step=step)
         metrics = Metrics(loss=total.detach(), photo=aux["photo"].detach(),
                           depth_l1=aux["depth_l1"].detach(),
-                          mask=aux["mask"].detach(), flow=aux["flow"],
+                          mask=aux["mask"].detach(), flow=aux["flow"].detach(),
                           psnr=aux["psnr"], tile_max=aux["tile_max"])
         return new_ts, metrics
 
     return train_step
+
+
+def make_exposure_update(width: int, height: int, max_time: float,
+                         num_warp: int = 9,
+                         raster_cfg: RasterConfig = RasterConfig()):
+    """Online exposure re-estimation (``step.py:477-526``; train.py:474-492,
+    every 10 iterations): per batch view, the median ratio of the latent
+    window's static flow magnitude (first to last latent pose) to the
+    frame-to-frame one (previous to next view), over the pixels above the
+    1 % quantile of the latter; halved at the sequence's ends, the old value
+    kept where the estimate is not finite. Two ``get_flow_static``
+    composites per view (CE=4), no gradient.
+
+    ``update(ts, view_idx, w2c, K, time, blur_feat, fwd_w2c, bwd_w2c,
+    is_endpoint)`` takes the batch's tensors (view_idx [B], w2c / fwd_w2c /
+    bwd_w2c [B,4,4], K [B,3,3], time / blur_feat / is_endpoint [B]) and
+    returns the state with ``blce.exposure_expo[view_idx]`` replaced (a new
+    BLCE state sharing the parameters; the old state is left as it was)."""
+
+    def update(ts: TrainState, view_idx, w2c, K, time, blur_feat,
+               fwd_w2c, bwd_w2c, is_endpoint) -> TrainState:
+        new_expos = []
+        with torch.no_grad():
+            for b in range(view_idx.shape[0]):
+                cam = Camera(w2c=w2c[b], K=K[b], time=time[b])
+                lat_c2w, _ = B.latent_poses(ts.blce, se3.view_to_world(w2c[b]),
+                                            blur_feat[b], view_idx[b], num_warp)
+                lat_w2c = se3.view_to_world(lat_c2w)
+                start = Camera(w2c=lat_w2c[0], K=K[b], time=time[b])
+                end = Camera(w2c=lat_w2c[-1], K=K[b], time=time[b])
+                fwd = Camera(w2c=fwd_w2c[b], K=K[b], time=time[b])
+                bwd = Camera(w2c=bwd_w2c[b], K=K[b], time=time[b])
+                _, cam_flow = R.get_flow_static(ts.stat, bwd, fwd, cam, width,
+                                                height, config=raster_cfg)
+                _, lat_flow = R.get_flow_static(ts.stat, start, end, cam, width,
+                                                height, config=raster_cfg)
+                cam_mag = torch.linalg.norm(cam_flow, dim=-1).reshape(-1)
+                lat_mag = torch.linalg.norm(lat_flow, dim=-1).reshape(-1)
+                q = torch.quantile(cam_mag, 0.01)
+                ratio = torch.where(cam_mag > q,
+                                    lat_mag / torch.clamp(cam_mag, min=1e-12),
+                                    torch.full_like(cam_mag, float("nan")))
+                # the mean of the two middle values for an even count, as
+                # jnp.nanmedian (torch.nanmedian returns the lower one)
+                new_expo = torch.nanquantile(ratio, 0.5)
+                new_expo = torch.where(is_endpoint[b], new_expo * 0.5, new_expo)
+                new_expos.append(torch.where(torch.isfinite(new_expo), new_expo,
+                                             ts.blce.exposure_expo[view_idx[b]]))
+            expo = ts.blce.exposure_expo.clone()
+            expo[view_idx] = torch.stack(new_expos)
+        return ts._replace(blce=B.BLCEState(ts.blce.params, expo))
+
+    return update

@@ -10,13 +10,16 @@ Tolerances: forward image and alpha atol 1e-4, depth rtol 1e-3 where
 walk vs cumprod and batched matmul) and contracts the sums into FMAs; on
 written-out tile lists its raw output within 1e-4. Two forward launches on
 the same inputs agree to the bit (no atomics).
+The exposure update through the kernels vs the plain route: rtol 1e-3 on
+the new exposures, medians of ratios of composited flow magnitudes.
 Backward, each gradient column within BWD_REL of its largest magnitude:
 the kernel's per-pixel running sums, its warp reductions and its atomics
 (whose order changes from run to run) sum in other orders than cumsum and
 index_add_, and the suffix-anchor subtraction amplifies that by up to
 1/(1 − α) ≤ 100. The train step's gradients through the kernels vs the
-plain route: the same, per leaf, STEP_REL, looser for BLCE's pose leaves,
-where the exp-map's 1/|w| axis normalisation multiplies the differences.
+plain route, flow off and flow on: the same, per leaf, STEP_REL, looser for
+BLCE's pose leaves, where the exp-map's 1/|w| axis normalisation
+multiplies the differences.
 """
 
 import numpy as np
@@ -41,12 +44,14 @@ BWD_REL = 1e-4   # measured at most 1.2e-6 at the protocol view (chip_smoke.py)
 STEP_REL = 1e-3  # measured at most 6e-7 per leaf at protocol shape
 CASES = ("default", "sub", "alpha_only", "image_only", "wide_ce29")
 # the forward on the tile lists of _edge_operands: (scene, random colour
-# columns, + depth and ones columns, sub chain) at CE = 2, 9, 11 + sub and
-# 29 + sub; counts that are no multiple of a thread's pixels or of a chunk,
-# count 0, an exit after chunk 1 in both chains, a Gaussian in every list
+# columns, + depth and ones columns, sub chain) at CE = 2, 4 (get_flow_static),
+# 9, 11 + sub and 29 + sub; counts that are no multiple of a thread's pixels
+# or of a chunk, count 0, an exit after chunk 1 in both chains, a Gaussian in
+# every list
 FWD_EDGE = {f"{scene}_{width}": (scene, *spec)
             for scene in ("ragged", "k64", "saturating", "wide_gauss")
-            for width, spec in (("ce2", (0, True, False)), ("ce9", (9, False, False)),
+            for width, spec in (("ce2", (0, True, False)), ("ce4", (2, True, False)),
+                                ("ce9", (9, False, False)),
                                 ("ce11_sub", (9, True, True)),
                                 ("ce29_sub", (27, True, True)))}
 
@@ -267,7 +272,8 @@ def _edge_forward_matches_plain(case, dev):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ("ragged_ce9", "saturating_ce11_sub", "wide_gauss_ce29_sub"))
+@pytest.mark.parametrize("case", ("ragged_ce9", "saturating_ce11_sub", "wide_gauss_ce29_sub",
+                                  "wide_gauss_ce4"))
 def test_forward_kernel_repeats_bitwise_on_card(case, cuda):
     """The forward has no atomics and a fixed order of operations per
     pixel: two launches on the same inputs agree to the bit."""
@@ -373,17 +379,29 @@ def _small_train_state(dev, seed=0):
 def test_train_step_kernels_match_plain_on_card(cuda):
     """One flow-off step's loss and gradients (B=2, E=3) through the
     kernels and through the plain route, from the same state and batch."""
+    _with_f32_convolutions(_step_kernels_vs_plain, cuda, 0.0)
+
+
+@pytest.mark.gpu
+def test_flow_train_step_kernels_match_plain_on_card(cuda):
+    """As the flow-off test, with the flow-warp loss on (λ = 1e-2): per view
+    two exposure-flow passes (CE=11 + sub) and the mid render with 2·E flow
+    columns (CE = 9 + 6 + 2 + sub), forward and backward."""
+    _with_f32_convolutions(_step_kernels_vs_plain, cuda, 1e-2)
+
+
+def _with_f32_convolutions(fn, *args):
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False  # the SSIM convolution in full f32
     try:
-        _step_kernels_vs_plain(cuda)
+        fn(*args)
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
 
 
-def _step_kernels_vs_plain(cuda):
+def _step_kernels_vs_plain(cuda, lambda_flow):
     ts, batch = _small_train_state(cuda)
-    opt = OptimizationParams(iterations=100, lambda_flow_loss=0.0)
+    opt = OptimizationParams(iterations=100, lambda_flow_loss=lambda_flow)
     cfg = RasterConfig(max_per_tile=256)
     leaves = [*G.split_diff(ts.stat)[0], *G.split_diff(ts.dyn)[0],
               *S.sandwich_leaves(ts.sandwich), *ts.blce.params.leaves()]
@@ -391,12 +409,14 @@ def _step_kernels_vs_plain(cuda):
     for backend in ("cuda", "plain"):
         fwd = S.make_forward(opt, W, H, 1.0, 3, cfg._replace(backend=backend))
         off = torch.zeros((2, 320, 2), device=cuda, requires_grad=True)
-        total, _ = fwd(ts.stat, ts.dyn, ts.sandwich, ts.blce, off, batch)
-        res[backend] = (float(total.detach()), torch.autograd.grad(
+        total, aux = fwd(ts.stat, ts.dyn, ts.sandwich, ts.blce, off, batch)
+        res[backend] = (float(total.detach()), float(aux["flow"].detach()), torch.autograd.grad(
             total, leaves + [off], allow_unused=True))
     np.testing.assert_allclose(res["cuda"][0], res["plain"][0], rtol=1e-5)
+    np.testing.assert_allclose(res["cuda"][1], res["plain"][1], rtol=1e-5)
+    assert (res["cuda"][1] > 0) == (lambda_flow > 0)
     n_checked = 0
-    for k, p in zip(res["cuda"][1], res["plain"][1]):
+    for k, p in zip(res["cuda"][2], res["plain"][2]):
         if p is None or not p.any():
             assert k is None or not k.any()
             continue
@@ -407,6 +427,41 @@ def _step_kernels_vs_plain(cuda):
     ts, m = S.make_train_step(opt, W, H, 1.0, 3, cfg)(ts, batch)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(m.loss)) and ts.step == 1
-    # per view: 2 latent renders and the mid render with the sub chain
+    # per view: 2 latent renders and the mid render with the sub chain, and
+    # with flow on 2 exposure-flow passes with it too
+    n_sub = 6 if lambda_flow > 0 else 2
     assert {k: cuda_raster.launches[k] - before[k] for k in before} == {
-        "raster_fwd": 4, "raster_fwd_sub": 2, "raster_bwd": 4, "raster_bwd_sub": 2}
+        "raster_fwd": 4, "raster_fwd_sub": n_sub, "raster_bwd": 4, "raster_bwd_sub": n_sub}
+
+
+@pytest.mark.gpu
+def test_exposure_update_kernels_match_plain_on_card(cuda):
+    """``make_exposure_update`` through the kernels and through the plain
+    route on a batch with an endpoint view: the new exposures within 1e-3
+    (a median of ratios of composited flow magnitudes), written only at the
+    batch's views; two CE=4 forward launches per view and no backward."""
+    ts, _ = _small_train_state(cuda)
+    V = 6
+    w2c = np.tile(np.eye(4, dtype=np.float32), (V, 1, 1))
+    for v in range(V):
+        a = 0.05 * (v - V / 2)
+        w2c[v, :3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
+        w2c[v, :3, 3] = [0.1 * v - 0.25, 0.02 * v, 0.05 * v]
+    ids = np.array([0, 3])
+    to = lambda x, dt=torch.float32: torch.as_tensor(np.asarray(x), dtype=dt, device=cuda)  # noqa: E731
+    args = (to(ids, torch.int64), to(w2c[ids]), to(np.stack([KMAT] * 2)), to([0.0, 0.6]),
+            to([0.3, 0.5]), to(w2c[np.minimum(ids + 1, V - 1)]),
+            to(w2c[np.maximum(ids - 1, 0)]), to((ids == 0) | (ids == V - 1), torch.bool))
+    cfg = RasterConfig(max_per_tile=256)
+    old = ts.blce.exposure_expo.clone()
+    before = dict(cuda_raster.launches)
+    k = S.make_exposure_update(W, H, 1.0, 3, cfg)(ts, *args).blce.exposure_expo
+    torch.cuda.synchronize()
+    assert {n: cuda_raster.launches[n] - before[n] for n in before} == {
+        "raster_fwd": 4, "raster_fwd_sub": 0, "raster_bwd": 0, "raster_bwd_sub": 0}
+    p = S.make_exposure_update(W, H, 1.0, 3, cfg._replace(backend="plain"))(
+        ts, *args).blce.exposure_expo
+    assert bool(torch.isfinite(k).all())
+    np.testing.assert_allclose(k.cpu().numpy(), p.cpu().numpy(), rtol=1e-3)
+    rest = np.setdiff1d(np.arange(V), ids)
+    assert torch.equal(k[rest], old[rest]) and torch.equal(ts.blce.exposure_expo, old)

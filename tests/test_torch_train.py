@@ -472,9 +472,16 @@ def test_loss_history_of_three_steps(world):
     assert pts.step == 3
 
 
-def test_flow_on_step_is_refused():
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        step.make_train_step(OptimizationParams(lambda_flow_loss=1e-2), W, H, 1.0)
-    # before start_warp the reference adds no flow term either
-    step.make_train_step(OptimizationParams(lambda_flow_loss=1e-2), W, H, 1.0,
-                         with_latents=False)
+def test_flow_on_step_is_refused(world):
+    """The flow-on step builds (``tests/test_torch_flow.py`` holds it
+    against the JAX step); before start_warp (``with_latents=False``) the
+    flow term is refused, as ``compute_flow`` at ``step.py:163`` says: the
+    step takes no flow passes and ``Metrics.flow`` is 0."""
+    kw = dict(iterations=100, batch_size=2, lambda_flow_loss=1e-2)
+    step.make_train_step(OptimizationParams(**kw), W, H, 1.0, E, CFG)
+    flow_off = step.make_train_step(OptimizationParams(**kw), W, H, 1.0, E, CFG,
+                                    with_latents=False)
+    pb = loop.make_batch(world["pdata"], np.array([1, 4]), device="cpu")
+    pts, m = flow_off(_port_state(world), pb)
+    assert float(m.flow) == 0.0 and np.isfinite(float(m.loss))
+    assert pts.step == 1
