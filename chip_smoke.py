@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port (``mobgs_tpu_torch``).
 
-Drives the port's serving path, its flow-off and flow-on training steps and
-its exposure re-estimation on one CUDA card at the seesaw protocol's full
+Drives the port's serving path, its flow-off and flow-on training steps, its
+exposure re-estimation and its host training loop on one CUDA card at the seesaw protocol's full
 width (512x288, 24 frames, 20k static + 10k dynamic seeds at x2 capacity =
 40k + 20k slots, tiles_per_gauss=9, max_per_tile=256; training at B=2 views
 and E=9 latent exposures), with a scene made from a seed and random
@@ -31,7 +31,10 @@ Sandwich and BLCE weights:
    view: (a) CE=9 image-only (latent render), (b) CE=11 with the sub chain
    (mid render), (c) CE=2 alpha-only, (d) CE=29 with the sub chain (the
    flow-on mid render's width: 9 + 2·9 flow columns + depth + weight),
-   upstream gradients from a seeded numpy generator;
+   upstream gradients from a seeded numpy generator; and the flow-on mid
+   render at E=11 and E=27 (CE=33 and CE=65 with the sub chain), which run
+   in column groups (2 and 3 launches), forward and backward against the
+   plain versions, with the launches per group;
 8. one flow-off train step's loss and gradients through the kernels
    against the plain route (``RasterConfig(backend="plain")``), same state
    and batch;
@@ -41,7 +44,10 @@ Sandwich and BLCE weights:
    16 + 2 backward launches per step), check the parameters moved, and
    trace one step;
 10. the same check as 8 for a flow-on step (``lambda_flow_loss=1e-2``, the
-    default configuration), whose flow term must be finite and positive;
+    default configuration), whose flow term must be finite and positive,
+    and again at E=11 latent exposures (the mid render at CE=33 + sub, two
+    column groups), then one E=11 step through the kernels with its
+    launches by instance;
 11. train 3 warm-up and 10 timed flow-on steps from a fresh state: it/s,
     loss, flow term and PSNR per step; exactly 16 ``raster_fwd`` / 18
     ``raster_fwd_sub`` / 16 ``raster_bwd`` / 18 ``raster_bwd_sub``
@@ -56,10 +62,32 @@ Sandwich and BLCE weights:
     version and its bound; the table's four entries, and on lines of their
     own the instances the training paths launch: CE=9 image-only, the CE=11
     + sub exposure-flow pass, the CE=29 + sub mid render forward and
-    backward, and ``get_flow_static``'s CE=4 forward, each with its
-    flow-on launches;
-14. print the ``{"kernels": [...]}`` line (launches: the flow-off training
-    path's), then the card line and the ``{"ok": true, ...}`` line last.
+    backward, ``get_flow_static``'s CE=4 forward, each with its flow-on
+    launches, and the CE=33 and CE=65 + sub mid renders (column groups);
+14. the K ladder: a 128x128 view of the scene (focal length a quarter of
+    the protocol's, so its 64 tiles hold thousands of entries each) with
+    the opacities scaled by 0.1 (so the walks go deep before they
+    saturate): the forward at max_per_tile 1024, 1536 and 2048 (CE=9, and
+    CE=11 + sub) and the backward at 1024 and 1536, each against its plain
+    version and timed beside its bound;
+15. the host loop at protocol width: ``train/loop.py::train`` for
+    LOOP_ITERS iterations, flow on, with the densify schedule brought
+    forward (boundaries every 4 iterations from 8; three static densify
+    rounds, then prunes; opacity reset at 16; exposure updates at 10, 20,
+    30; capacity drift checks at every boundary; budget checks every 12)
+    and a gradient threshold low enough to grow the pools; it/s, events,
+    the host time and live counts per pool of each iteration, launches by
+    instance, the peak device memory of the last iteration at the grown
+    capacity, and the phase's seconds; then one more step at the grown
+    capacity: its own peak memory and a trace of it;
+16. a 10-iteration loop on a reduced scene (128x72) through the kernels and
+    through the plain route from the same seeds: the same history length,
+    loss per iteration within LOSS_RTOL, live counts and capacities equal
+    (or the densify decision that flipped and its margin), exposures within
+    EXPO_RTOL;
+17. print the ``{"kernels": [...]}`` line (launches: the flow-off training
+    path's), chip_smoke's wall seconds, then the card line and the
+    ``{"ok": true, ...}`` line last.
 
 Every failure raises and exits non-zero. Without a CUDA card it exits 2
 and prints no result. Run: ``python3 chip_smoke.py``.
@@ -106,6 +134,17 @@ N_FLOW_WARM, N_FLOW_STEPS, LAMBDA_FLOW = 3, 10, 1e-2
 # above, unless they move a pixel across the 1 % quantile cut-off.
 EXPO_RTOL = 1e-3
 N_EXPO = 10
+# the flow-on step and mid render beyond one kernel instance (CE_GROUP = 32):
+# E=11 (CE=33 + sub, two column groups) and E=27 (CE=65 + sub, three)
+E_WIDE = (11, 27)
+# the K ladder: a 128x128 view; forward and backward budgets
+K_VIEW = 128
+K_FWD, K_BWD = (1024, 1536, 2048), (1024, 1536)
+# the host loop at protocol width (phase 15) and the reduced loop (phase 16)
+LOOP_ITERS = 30
+LOOP_GRAD_THR = 2e-5
+LOOP_MAX_CAP = 131_072
+N_SMALL_LOOP = 10
 # flow columns are displacements in pixels: their kernel-vs-plain difference
 # is held at IMG_ATOL times their largest magnitude (at least 1 pixel)
 # Published H100 SXM peaks (NVIDIA data sheet, at 700 W): float32 outside
@@ -129,6 +168,46 @@ REPLACES = {"raster_fwd": "mobgs_tpu/ops/pallas_raster.py:118",
 def flow_err(k, p):
     """Max abs difference of two flow composites, over their tolerance."""
     return float((k - p).abs().max()) / (IMG_ATOL * max(1.0, float(p.abs().max())))
+
+
+def launch_delta(before):
+    """Instance launches since the snapshot ``before``."""
+    from mobgs_tpu_torch.ops import cuda_raster
+    return {k: v - before.get(k, 0) for k, v in cuda_raster.instance_launches.items()
+            if v != before.get(k, 0)}
+
+
+def recording_controller(real, out):
+    """``densify.control_gaussians`` that first records, at each densify
+    round, the pool's mean gradient norms, its live mask and its
+    threshold (numpy), keyed by (iteration, is_dynamic)."""
+    def controller(state, stats, opt_state, key, iteration, flag, opt_cfg,
+                   scene_extent, is_dynamic, **kw):
+        if (opt_cfg.densify_from_iter < iteration < opt_cfg.densify_until_iter
+                and iteration % opt_cfg.densification_interval == 0
+                and (is_dynamic or flag < opt_cfg.desicnt)):
+            g = torch.nan_to_num(stats.xyz_grad_accum
+                                 / torch.clamp(stats.denom, min=1e-12))
+            thr = opt_cfg.densify_grad_threshold * (0.5 if is_dynamic else 1.0)
+            out[(iteration, is_dynamic)] = (g.cpu().numpy(), state.live.cpu().numpy(), thr)
+        return real(state, stats, opt_state, key, iteration, flag, opt_cfg,
+                    scene_extent, is_dynamic, **kw)
+    return controller
+
+
+class EventTee:
+    """stdout that also keeps the loop's event lines ("[grow] ...",
+    "[tile_max] ...", "[budgets] ...")."""
+
+    def __init__(self, out):
+        self.out, self.events = out, []
+
+    def write(self, text):
+        self.events += [ln for ln in text.splitlines() if ln.startswith("[")]
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
 
 
 def require(ok, what):
@@ -218,6 +297,7 @@ def main():
     from mobgs_tpu_torch.ops import cuda_raster, projection, tiles
     from mobgs_tpu_torch.viewer import ViewerServer, make_viewer_render
 
+    t_start = time.time()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -457,18 +537,48 @@ def main():
             torch.as_tensor(rng.normal(size=(N, 2 * E_WARP)).astype(np.float32), device=dev),
             splats.depths[:, None], ones], 1), True),
     }
-    bwd_inputs, bwd_errs = {}, {}
+    # the flow-on mid render beyond one instance: column groups
+    for e_w in E_WIDE:
+        bwd_cases[f"wide_mid_ce{2 * e_w + 11}_sub"] = (torch.cat([
+            geom.colors,
+            torch.as_tensor(rng.normal(size=(N, 2 * e_w)).astype(np.float32), device=dev),
+            splats.depths[:, None], ones], 1), True)
+    bwd_inputs, bwd_errs, wide_groups = {}, {}, {}
     rec_names = ("mx", "my", "conic_a", "conic_b", "conic_c", "opacity", "sub_opacity")
     for name, (col, sub) in bwd_cases.items():
         col = col.detach().contiguous()
         rec = cuda_raster.pack_records(splats, geom.opacity, sub_op if sub else None).detach()
+        before = dict(cuda_raster.instance_launches)
         with torch.no_grad():
             out, out2 = cuda_raster.composite_fwd(ids, cnt, rec, col, ntx, sub)
+        fwd_groups = launch_delta(before)
+        CE = col.shape[1]
+        if CE > cuda_raster.CE_GROUP:
+            with torch.no_grad():
+                p_out, p_out2 = cuda_raster.composite_tiles_plain(ids, cnt, rec, col, ntx, sub)
+            e = {"image": float((out[..., :9] - p_out[..., :9]).abs().max()),
+                 "flow/tol": flow_err(out[..., 9:CE - 2], p_out[..., 9:CE - 2]),
+                 "depth/tol": flow_err(out[..., CE - 2], p_out[..., CE - 2]),
+                 "weight": float((out[..., CE - 1] - p_out[..., CE - 1]).abs().max()),
+                 "sub_alpha": float((out2 - p_out2).abs().max())}
+            print(f"{name} forward vs plain: {json.dumps(e)}")
+            require(e["image"] <= IMG_ATOL and e["weight"] <= IMG_ATOL
+                    and e["sub_alpha"] <= IMG_ATOL and e["flow/tol"] <= 1.0
+                    and e["depth/tol"] <= 1.0, f"{name} forward {e}")
+            require(sum(fwd_groups.values()) == len(cuda_raster.column_groups(CE)),
+                    f"{name}: forward launches {fwd_groups}")
+            errs[name] = e
         g = torch.as_tensor(rng.normal(size=out.shape).astype(np.float32), device=dev)
         g2 = (torch.as_tensor(rng.normal(size=out2.shape).astype(np.float32), device=dev)
               if sub else None)
         args = (ids, cnt, rec, col, out, out2, g, g2, ntx, sub)
+        before = dict(cuda_raster.instance_launches)
         k = cuda_raster.composite_bwd(*args)
+        bwd_groups = launch_delta(before)
+        if CE > cuda_raster.CE_GROUP:
+            wide_groups[CE] = (fwd_groups, bwd_groups)
+            print(f"{name}: launches by column group: forward {json.dumps(fwd_groups)}, "
+                  f"backward {json.dumps(bwd_groups)}")
         p = cuda_raster.composite_bwd_plain(*args)
         torch.cuda.synchronize()
         leaves = {rec_names[j]: (k[0][:, j], p[0][:, j]) for j in range(7 if sub else 6)}
@@ -486,7 +596,7 @@ def main():
         bwd_inputs[name] = args
         bwd_errs[name] = abs_err
 
-    def train_state():
+    def train_state(num_warp=E_WARP):
         stat_t = G.create_state(s_pts, s_cols, np.zeros(len(s_pts), np.float32),
                                 capacity=len(s_pts) * CAP_MULT,
                                 generator=torch.Generator(device=dev).manual_seed(0),
@@ -498,7 +608,7 @@ def main():
                                traj_times=torch.as_tensor(data.time), device=dev)
         sw = init_sandwich(torch.Generator(device=dev).manual_seed(1), device=dev)
         bl = B.init_blce(torch.Generator(device=dev).manual_seed(2), num_views=FRAMES,
-                         num_warp=E_WARP, device=dev)
+                         num_warp=num_warp, device=dev)
         return S.init_train_state(stat_t, dyn_t, sw, bl)
 
     names = {"stat": G.DIFF_FIELDS, "dyn": G.DIFF_FIELDS,
@@ -509,13 +619,13 @@ def main():
                 "sandwich": S.sandwich_leaves(ts.sandwich),
                 "blce": ts.blce.params.leaves()}
 
-    def step_vs_plain(opt, ts, batch):
+    def step_vs_plain(opt, ts, batch, num_warp=E_WARP):
         """One step's loss and gradients through the kernels and through the
         plain route, same state and batch; returns the kernel route's aux."""
         groups = param_groups(ts)
         step_res = {}
         for backend in ("cuda", "plain"):
-            fwd = S.make_forward(opt, W, H, data.max_time, E_WARP,
+            fwd = S.make_forward(opt, W, H, data.max_time, num_warp,
                                  cfg._replace(backend=backend))
             off = torch.zeros((B_VIEWS, ts.stat.capacity + ts.dyn.capacity, 2),
                               device=dev, requires_grad=True)
@@ -658,6 +768,29 @@ def main():
     sampler_f = L.BatchSampler(FRAMES, B_VIEWS, seed=1)
     aux = step_vs_plain(opt_flow, ts_f, L.make_batch(data, sampler_f.next_ids(), dev))
     require(np.isfinite(aux["flow"]) and aux["flow"] > 0, f"flow term {aux['flow']}")
+    # more latent exposures than one kernel instance takes in the mid render:
+    # E=11 gives CE = 9 + 22 + 2 = 33 + sub, two column groups
+    e_w = E_WIDE[0]
+    ts_w = train_state(e_w)
+    batch_w = L.make_batch(data, L.BatchSampler(FRAMES, B_VIEWS, seed=2).next_ids(), dev)
+    print(f"flow-on step at E={e_w} (mid render CE={2 * e_w + 11} + sub):")
+    aux = step_vs_plain(opt_flow, ts_w, batch_w, e_w)
+    require(np.isfinite(aux["flow"]) and aux["flow"] > 0, f"E={e_w} flow term {aux['flow']}")
+    step_w = S.make_train_step(opt_flow, W, H, data.max_time, e_w, cfg)
+    torch.cuda.synchronize()
+    cuda_raster.reset_launches()
+    ts_w, m_w = step_w(ts_w, batch_w)
+    torch.cuda.synchronize()
+    e11_launches, e11_instances = dict(cuda_raster.launches), dict(cuda_raster.instance_launches)
+    n_groups = len(cuda_raster.column_groups(2 * e_w + 11))
+    want = {"raster_fwd": B_VIEWS * (e_w - 1),
+            "raster_fwd_sub": B_VIEWS * (e_w - 1) + B_VIEWS * n_groups}
+    want.update(raster_bwd=want["raster_fwd"], raster_bwd_sub=want["raster_fwd_sub"])
+    print(f"one E={e_w} flow-on step through the kernels: loss {float(m_w.loss)!r}, "
+          f"launches {json.dumps(e11_launches)}; by instance {json.dumps(e11_instances)}")
+    require(bool(torch.isfinite(m_w.loss)) and e11_launches == want,
+            f"E={e_w} step launches {e11_launches}, expected {want}")
+    del ts_w, step_w
     times["flow_step_check_s"] = time.time() - t0
 
     phase("11 flow-on train")
@@ -748,11 +881,12 @@ def main():
     # launches of this phase are not counted above
     entries = []
 
-    def fwd_cost(ids_, cnt_, rec, col, sub):
+    def fwd_cost(ids_, cnt_, rec, col, sub, ntx_=None):
         """Operations and bytes the forward needs on these inputs."""
         work = {}
         with torch.no_grad():
-            cuda_raster.composite_tiles_plain(ids_, cnt_, rec, col, ntx, sub, work=work)
+            cuda_raster.composite_tiles_plain(ids_, cnt_, rec, col, ntx_ or ntx, sub,
+                                              work=work)
         T_, CE = ids_.shape[0], col.shape[1]
         pairs = int(work["slots"].sum()) * cuda_raster.P
         # per live (slot, pixel) pair: dx, dy, sigma (11), exp (1), alpha (2),
@@ -765,9 +899,9 @@ def main():
             bytes_ += 4 * (n_ref + T_ * 256)
         return ops, bytes_, pairs, work
 
-    def bwd_cost(ids_, cnt_, rec, col, sub):
+    def bwd_cost(ids_, cnt_, rec, col, sub, ntx_=None):
         """Operations and bytes the backward needs on these inputs."""
-        _, _, pairs, work = fwd_cost(ids_, cnt_, rec, col, sub)
+        _, _, pairs, work = fwd_cost(ids_, cnt_, rec, col, sub, ntx_)
         T_, CE = ids_.shape[0], col.shape[1]
         n_ref = int(work["n_ref"])
         rows = 7 if sub else 6
@@ -804,11 +938,12 @@ def main():
             "library_ms": None,
         })
 
-    def time_fwd(ids_, cnt_, rec, col, sub):
+    def time_fwd(ids_, cnt_, rec, col, sub, ntx_=None, iters=50, plain_iters=5):
+        n = ntx_ or ntx
         with torch.no_grad():
-            ms = cuda_ms(lambda: cuda_raster.composite_fwd(ids_, cnt_, rec, col, ntx, sub), 50)
+            ms = cuda_ms(lambda: cuda_raster.composite_fwd(ids_, cnt_, rec, col, n, sub), iters)
             plain_ms = cuda_ms(lambda: cuda_raster.composite_tiles_plain(
-                ids_, cnt_, rec, col, ntx, sub), 5)
+                ids_, cnt_, rec, col, n, sub), plain_iters)
         return ms, plain_ms
 
     def instance_line(label, ms, plain_ms, ops, bytes_, pairs, CE, launches):
@@ -874,6 +1009,29 @@ def main():
                   plain_ms, ops, bytes_, pairs, 29,
                   flow_instances.get("raster_bwd_sub CE=29", 0))
 
+    # the flow-on mid render at E=11 and E=27: column groups of the <32>
+    # instances (launches per group: one E=11 flow-on step, phase 10)
+    for e_w in E_WIDE:
+        CE = 2 * e_w + 11
+        argsw = bwd_inputs[f"wide_mid_ce{CE}_sub"]
+        _, _, recw, colw, *_ = argsw
+        fg, bg_ = wide_groups[CE]
+        step_l = {k2: v for k2, v in e11_instances.items() if e_w == E_WIDE[0]
+                  and k2.startswith("raster_fwd_sub CE=") and k2 != "raster_fwd_sub CE=11"}
+        ms, plain_ms = time_fwd(ids, cnt, recw, colw, True)
+        ops, bytes_, pairs, _ = fwd_cost(ids, cnt, recw, colw, True)
+        instance_line(f"raster_fwd_sub CE={CE} mid render at E={e_w} (groups {fg})", ms,
+                      plain_ms, ops, bytes_, pairs, CE,
+                      f"{step_l} in one E={e_w} step" if step_l else "no path run here")
+        step_l = {k2: v for k2, v in e11_instances.items() if e_w == E_WIDE[0]
+                  and k2.startswith("raster_bwd_sub CE=") and k2 != "raster_bwd_sub CE=11"}
+        ms = cuda_ms(lambda: cuda_raster.composite_bwd(*argsw), 50)
+        plain_ms = cuda_ms(lambda: cuda_raster.composite_bwd_plain(*argsw), 5)
+        ops, bytes_, pairs, _ = bwd_cost(ids, cnt, recw, colw, True)
+        instance_line(f"raster_bwd_sub CE={CE} mid render at E={e_w} (groups {bg_}; with the "
+                      f"zeroed outputs)", ms, plain_ms, ops, bytes_, pairs, CE,
+                      f"{step_l} in one E={e_w} step" if step_l else "no path run here")
+
     # get_flow_static's composite: the static set at the view's camera, the
     # flow between its neighbours' cameras, depth and weight (CE = 2 + 2)
     s_means, s_quats = stat.xyz, G.act_rotation(stat.rotation)
@@ -918,7 +1076,273 @@ def main():
     print(f"times: {json.dumps({k: round(v, 2) for k, v in times.items()})}")
     print(f"rates: {json.dumps(rates)}")
 
-    phase("14 result")
+    phase("14 K ladder")
+    # a 128x128 view at a quarter of the protocol's focal length: each of
+    # its 64 tiles holds thousands of entries; opacities x0.1 keep the walks
+    # from saturating, so the kernels walk deep into the lists
+    t0 = time.time()
+    k_mat = np.array(data.K[0], np.float32).copy()
+    k_mat[0, 0] *= 0.25
+    k_mat[1, 1] *= 0.25
+    k_mat[0, 2] = k_mat[1, 2] = K_VIEW / 2
+    cam_k = Camera(w2c=cam(0).w2c, K=torch.as_tensor(k_mat, device=dev), time=cam(0).time)
+    geom_k, splats_k = R.assemble_project(stat, dyn, cam_k, K_VIEW, K_VIEW, data.max_time,
+                                          config=cfg)
+    splats_k = projection.ProjectedSplats(*(x.detach() for x in splats_k))
+    opac_k = (0.1 * geom_k.opacity).detach()
+    ones_k = torch.ones(len(opac_k), 1, device=dev)
+    k_cols = {"CE=9": (geom_k.colors.detach().contiguous(), False),
+              "CE=11+sub": (torch.cat([geom_k.colors, splats_k.depths[:, None], ones_k], 1)
+                            .detach().contiguous(), True)}
+    rng_k = np.random.default_rng(9)
+    k_ladder = {}
+    for K in K_FWD:
+        bins_k = tiles.bin_gaussians(splats_k, K_VIEW, K_VIEW,
+                                     tiles_per_gauss=cfg.tiles_per_gauss, max_per_tile=K)
+        ids_k, cnt_k, ntx_k = (bins_k.gauss_ids.contiguous(), bins_k.counts.contiguous(),
+                               bins_k.n_tiles_x)
+        for label, (col, sub) in k_cols.items():
+            rec = cuda_raster.pack_records(splats_k, opac_k,
+                                           opac_k * geom_k.dyn_mask if sub else None).detach()
+            work = {}
+            with torch.no_grad():
+                out, out2 = cuda_raster.composite_fwd(ids_k, cnt_k, rec, col, ntx_k, sub)
+                p_out, p_out2 = cuda_raster.composite_tiles_plain(ids_k, cnt_k, rec, col, ntx_k,
+                                                                  sub, work=work)
+            CE = col.shape[1]
+            e = {"image": float((out[..., :9] - p_out[..., :9]).abs().max())}
+            if sub:
+                e.update(depth_tol=flow_err(out[..., 9], p_out[..., 9]),
+                         weight=float((out[..., 10] - p_out[..., 10]).abs().max()),
+                         sub_alpha=float((out2 - p_out2).abs().max()))
+            slots = work["slots"]
+            ms, plain_ms = time_fwd(ids_k, cnt_k, rec, col, sub, ntx_k, 20, 3)
+            ops, bytes_, pairs, _ = fwd_cost(ids_k, cnt_k, rec, col, sub, ntx_k)
+            print(f"K={K} forward {label}: {json.dumps(e)}; entries per tile mean "
+                  f"{float(cnt_k.float().mean()):.0f} max {int(cnt_k.max())}, slots walked max "
+                  f"{int(slots.max())} mean {float(slots.float().mean()):.0f}")
+            instance_line(f"raster_fwd{'_sub' if sub else ''} {label} at K={K} "
+                          f"({K_VIEW}x{K_VIEW}, T={ids_k.shape[0]})", ms, plain_ms, ops, bytes_,
+                          pairs, CE, "the ladder's")
+            require(e["image"] <= IMG_ATOL and e.get("weight", 0.0) <= IMG_ATOL
+                    and e.get("sub_alpha", 0.0) <= IMG_ATOL and e.get("depth_tol", 0.0) <= 1.0,
+                    f"K={K} forward {label} {e}")
+            require(int(slots.max()) > K // 2, f"K={K}: the walks stopped at {int(slots.max())}")
+            k_ladder[f"fwd {label} K={K}"] = max(e.values())
+            if K not in K_BWD:
+                continue
+            g = torch.as_tensor(rng_k.normal(size=out.shape).astype(np.float32), device=dev)
+            g2 = (torch.as_tensor(rng_k.normal(size=out2.shape).astype(np.float32),
+                                  device=dev) if sub else None)
+            args = (ids_k, cnt_k, rec, col, out, out2, g, g2, ntx_k, sub)
+            kb = cuda_raster.composite_bwd(*args)
+            pb = cuda_raster.composite_bwd_plain(*args)
+            torch.cuda.synchronize()
+            n_rows = 7 if sub else 6
+            rel = [float((kb[0][:, j] - pb[0][:, j]).abs().max())
+                   / max(float(pb[0][:, j].abs().max()), 1e-30) for j in range(n_rows)]
+            rel.append(float((kb[1] - pb[1]).abs().max()) / max(float(pb[1].abs().max()), 1e-30))
+            print(f"K={K} backward {label}: max |k-p|/max|p| per column "
+                  f"{[float(f'{r:.3g}') for r in rel]}")
+            require(all(np.isfinite(rel)) and max(rel) <= BWD_REL, f"K={K} backward {label}")
+            ms = cuda_ms(lambda: cuda_raster.composite_bwd(*args), 20)
+            plain_ms = cuda_ms(lambda: cuda_raster.composite_bwd_plain(*args), 3)
+            ops, bytes_, pairs, _ = bwd_cost(ids_k, cnt_k, rec, col, sub, ntx_k)
+            instance_line(f"raster_bwd{'_sub' if sub else ''} {label} at K={K} (with the "
+                          f"zeroed outputs)", ms, plain_ms, ops, bytes_, pairs, CE, "the ladder's")
+            k_ladder[f"bwd {label} K={K}"] = max(rel)
+    times["k_ladder_s"] = time.time() - t0
+
+    # ---- the host loop ----
+    import contextlib
+    from mobgs_tpu_torch.config import BlceParams
+    from mobgs_tpu_torch.train import densify as D
+
+    phase("15 host loop at protocol width")
+    # the densify schedule brought forward: boundaries 8, 12, ..., 28 (static
+    # densify rounds at 8, 12, 16, prunes at 20, 24, 28), opacity reset at 16,
+    # exposure updates at 10, 20, 30; opthr just under the reset's 0.01 so
+    # the prunes after the reset remove the Gaussians that kept fading
+    loop_opt = OptimizationParams(
+        iterations=10_000, batch_size=B_VIEWS, lambda_flow_loss=LAMBDA_FLOW,
+        densify_from_iter=4, densification_interval=4, desicnt=3,
+        opacity_reset_interval=16, densify_grad_threshold=LOOP_GRAD_THR, opthr=0.009)
+    loop_blce = BlceParams(num_warp=E_WARP, start_warp_exposure=4)
+    extent = L.scene_extent_from_cameras(data.w2c)
+    ts_l = train_state()
+    caps0 = (ts_l.stat.capacity, ts_l.dyn.capacity)
+    observed = {}
+
+    def on_eval(ts_now, it):
+        observed[it] = (ts_now.stat.capacity, ts_now.dyn.capacity,
+                        float(G.act_opacity(ts_now.stat).detach().max()))
+        if it == LOOP_ITERS - 1:  # the last iteration's peak, at the grown capacity
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    tee = EventTee(sys.stdout)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cuda_raster.reset_launches()
+    t0 = time.time()
+    with contextlib.redirect_stdout(tee):
+        ts_l, hist_l = L.train(ts_l, data, loop_opt, loop_blce, LOOP_ITERS, raster_cfg=cfg,
+                               scene_extent=extent, seed=0, log_every=1, eval_every=1,
+                               on_eval=on_eval, base_raster_cfg=cfg, deescalate_every=12,
+                               max_capacity=LOOP_MAX_CAP, device=dev)
+    torch.cuda.synchronize()
+    loop_s = time.time() - t0
+    peak_last = torch.cuda.max_memory_allocated(dev)
+    loop_launches, loop_instances = dict(cuda_raster.launches), dict(cuda_raster.instance_launches)
+    rates["loop_it_s"] = LOOP_ITERS / loop_s
+    prev = 0.0
+    for h in hist_l:
+        it = h["iter"]
+        # the host clock of the iteration, densify and the hooks' sync included
+        dt_ms, prev = 1e3 * (h["elapsed"] - prev), h["elapsed"]
+        print(f"  iter {it:2d} ({dt_ms:7.1f} ms): loss {h['loss']:.6f} flow {h['flow']:.4g} "
+              f"psnr {h['psnr']:.3f} "
+              f"live {h['n_stat']} + {h['n_dyn']} in {observed[it][0]} + {observed[it][1]} "
+              f"slots, max_per_tile {h['max_per_tile']}, tile_max {h['tile_max']}, dropped "
+              f"{h['densify_dropped_stat']} + {h['densify_dropped_dyn']}, max opacity "
+              f"{observed[it][2]:.4f}")
+    print(f"loop events: {json.dumps(tee.events)}")
+    print(f"loop: {rates['loop_it_s']:.3f} it/s over {LOOP_ITERS} iterations ({loop_s:.1f} s; "
+          f"B={B_VIEWS} E={E_WARP} {W}x{H}, flow on, extent {extent:.4f}), slots "
+          f"{caps0[0]} + {caps0[1]} -> {ts_l.stat.capacity} + {ts_l.dyn.capacity}, on {card}")
+    print(f"loop launches ({LOOP_ITERS} iterations): {json.dumps(loop_launches)}; by instance "
+          f"{json.dumps(loop_instances)}")
+    print(f"peak device memory: {peak_last / 2**30:.3f} GiB over the last iteration at "
+          f"{ts_l.stat.capacity} + {ts_l.dyn.capacity} slots (torch.cuda.max_memory_allocated), "
+          f"on {card}")
+    n_stat = [h["n_stat"] for h in hist_l]
+    require(len(hist_l) == LOOP_ITERS and all(np.isfinite(h["loss"]) for h in hist_l),
+            "loop history")
+    require(n_stat[7] > n_stat[6], "no clone/split at the first densify boundary (8)")
+    require(any(n_stat[i] < n_stat[i - 1] for i in (19, 23, 27)),
+            "no static prune after the densify rounds")
+    require(observed[16][2] <= 0.01 + 1e-6, f"opacity reset at 16: max {observed[16][2]}")
+    require(loop_instances.get("raster_fwd CE=4", 0) == 4 * B_VIEWS // 2 * 3,
+            f"three exposure updates of 4 CE=4 forwards: {loop_instances}")
+    require(any(e.startswith("[grow]") for e in tee.events), "no pool grew")
+    require(all(loop_launches[k] > 0 for k in loop_launches), f"loop launches {loop_launches}")
+    times["loop_s"] = loop_s
+    # one more step at the grown capacity and the last iteration's budgets:
+    # its peak memory alone, and where its device time goes
+    last_cfg = cfg._replace(max_per_tile=hist_l[-1]["max_per_tile"])
+    for ev in tee.events:
+        if ev.startswith("[budgets]"):
+            last_cfg = last_cfg._replace(tiles_per_gauss=int(
+                ev.split("tiles_per_gauss ")[1].split(" -> ")[1].split(",")[0]))
+    step_l = S.make_train_step(loop_opt, W, H, data.max_time, E_WARP, last_cfg,
+                               spatial_lr_scale=extent)
+    batch_l = L.make_batch(data, L.BatchSampler(FRAMES, B_VIEWS, seed=5).next_ids(), dev)
+    step_l(ts_l, batch_l)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ts_l, _ = step_l(ts_l, batch_l)
+    torch.cuda.synchronize()
+    peak_step = torch.cuda.max_memory_allocated(dev)
+    print(f"peak device memory of one step at {ts_l.stat.capacity} + {ts_l.dyn.capacity} slots, "
+          f"max_per_tile {last_cfg.max_per_tile}: {peak_step / 2**30:.3f} GiB, on {card}")
+    _, busy = trace(lambda: step_l(ts_l, batch_l), f"flow-on step at the grown capacity "
+                    f"({ts_l.stat.capacity} + {ts_l.dyn.capacity} slots, K={last_cfg.max_per_tile})")
+    times["loop_grown_step_device_ms"] = busy / 1e3
+    del ts_l, step_l
+
+    phase("16 loop: kernels vs plain")
+    # a reduced scene (128x72, 8 frames, 1500 + 400 seeds at capacity x1.25)
+    # and the same schedule from 2: densify rounds at 4 and 6 (then
+    # prunes), reset at 6, an exposure update at 10; the same seeds and
+    # split noise through both routes
+    t0 = time.time()
+    from mobgs_tpu_torch.data import synthetic
+    from mobgs_tpu_torch.ops.rasterize import RasterConfig
+    small_cfg = RasterConfig(tiles_per_gauss=9, max_per_tile=256)
+    data_s, traj_s = synthetic.generate(width=128, height=72, num_frames=8, n_static=300,
+                                        n_dyn=80, blur_substeps=3, raster_cfg=small_cfg,
+                                        device=dev)
+    sp_s, sc_s, dt_s = synthetic.init_point_clouds(data_s, traj_s, 1500, 400)
+
+    def small_state():
+        st = G.create_state(sp_s, sc_s, np.zeros(len(sp_s), np.float32),
+                            capacity=len(sp_s) * 5 // 4,
+                            generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+        dy = G.create_state(dt_s[:, 0], np.full((len(dt_s), 3), 0.5, np.float32),
+                            np.zeros(len(dt_s), np.float32), capacity=len(dt_s) * 5 // 4,
+                            trajectory=torch.as_tensor(dt_s),
+                            traj_times=torch.as_tensor(data_s.time), device=dev)
+        return S.init_train_state(
+            st, dy, init_sandwich(torch.Generator(device=dev).manual_seed(1), device=dev),
+            B.init_blce(torch.Generator(device=dev).manual_seed(2), num_views=len(data_s.time),
+                        num_warp=E_WARP, device=dev))
+
+    small_opt = OptimizationParams(
+        iterations=10_000, batch_size=B_VIEWS, lambda_flow_loss=LAMBDA_FLOW,
+        densify_from_iter=2, densification_interval=2, desicnt=2, opacity_reset_interval=6,
+        densify_grad_threshold=LOOP_GRAD_THR, opthr=0.009)
+    small_blce = BlceParams(num_warp=E_WARP, start_warp_exposure=5)
+    runs, rounds = {}, {"cuda": {}, "plain": {}}
+    real_controller = D.control_gaussians
+    for backend in ("cuda", "plain"):
+        D.control_gaussians = recording_controller(real_controller, rounds[backend])
+        try:
+            runs[backend] = L.train(small_state(), data_s, small_opt, small_blce, N_SMALL_LOOP,
+                                    raster_cfg=small_cfg._replace(backend=backend),
+                                    scene_extent=L.scene_extent_from_cameras(data_s.w2c),
+                                    seed=0, log_every=1, device=dev)
+        finally:
+            D.control_gaussians = real_controller
+    (ts_k, hk), (ts_p, hp) = runs["cuda"], runs["plain"]
+    require(len(hk) == len(hp) == N_SMALL_LOOP, "reduced loop history lengths")
+    # a densify decision that flipped between the routes, and each round's
+    # margin: min over live slots of |g - thr| / |g_kernels - g_plain|
+    flip_it, margins = None, {}
+    for key in sorted(rounds["cuda"]):
+        if key not in rounds["plain"]:
+            break
+        (a, live, thr), (b, _, _) = rounds["cuda"][key], rounds["plain"][key]
+        m = live & (a > 0)
+        margins[f"{key[0]}{'d' if key[1] else 's'}"] = float(
+            (np.abs(a - thr)[m] / np.maximum(np.abs(a - b)[m], 1e-30)).min())
+        flipped = live & ((a >= thr) != (b >= thr))
+        if flipped.any() and flip_it is None:
+            flip_it = key[0]
+            print(f"densify decision flipped at iteration {key[0]} ({'dynamic' if key[1] else 'static'}"
+                  f" pool): {int(flipped.sum())} slots, |g - thr| "
+                  f"{float(np.abs(a - thr)[flipped].min()):.3g} vs thr {thr:.3g}")
+    print(f"densify margins (min |g - thr| / |g_k - g_p| per round): {json.dumps(margins)}")
+    worst = 0.0
+    for a, b in zip(hk, hp):
+        if flip_it is not None and a["iter"] > flip_it:
+            break
+        rel = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+        worst = max(worst, rel)
+        require(rel <= LOSS_RTOL, f"reduced loop iteration {a['iter']}: loss {a['loss']!r} "
+                f"vs {b['loss']!r}")
+        for key2 in ("n_stat", "n_dyn", "max_per_tile"):
+            require(a[key2] == b[key2], f"reduced loop iteration {a['iter']}: {key2}")
+    expo_rel = float(((ts_k.blce.exposure_expo - ts_p.blce.exposure_expo).abs()
+                      / ts_p.blce.exposure_expo.abs()).max())
+    print(f"reduced loop: worst loss rel diff {worst:.3g}; live "
+          f"{[(h['n_stat'], h['n_dyn']) for h in hk]}; slots {ts_k.stat.capacity} + "
+          f"{ts_k.dyn.capacity} (plain {ts_p.stat.capacity} + {ts_p.dyn.capacity}); exposures "
+          f"max rel diff {expo_rel:.3g}")
+    if flip_it is None:
+        require((ts_k.stat.capacity, ts_k.dyn.capacity) == (ts_p.stat.capacity, ts_p.dyn.capacity),
+                "reduced loop capacities")
+        require(expo_rel <= EXPO_RTOL, f"reduced loop exposures {expo_rel:.3g}")
+    require((ts_k.stat.capacity, ts_k.dyn.capacity) != (len(sp_s) * 5 // 4, len(dt_s) * 5 // 4),
+            "the reduced loop grew no pool")
+    require(not torch.equal(ts_k.blce.exposure_expo,
+                            torch.full_like(ts_k.blce.exposure_expo, 0.4)),
+            "the reduced loop updated no exposure")
+    times["loop_vs_plain_s"] = time.time() - t0
+    times["total_s"] = time.time() - t_start
+    print(f"times: {json.dumps({k: round(v, 2) for k, v in times.items()})}")
+    print(f"rates: {json.dumps(rates)}")
+
+    phase("17 result")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,10 @@
 
 ``GaussianState`` is an ``nn.Module``: the float fields are
 ``nn.Parameter``s in the JAX NamedTuple's field order, ``control_num`` and
-``live`` are buffers. Arrays never change shape; densify and prune (a
-later slice) write into free slots and flip the mask, as in the JAX
-package. The activations and time-dependent accessors are free functions
+``live`` are buffers. Densify and prune write into free slots and flip the
+mask in place, as the JAX package does functionally; only pool growth
+(:func:`grow_state`, a rare host event) changes the capacity, and it builds
+a new module. The activations and time-dependent accessors are free functions
 over the module, as they are over the pytree there.
 """
 
@@ -235,3 +236,20 @@ def create_state(points: torch.Tensor, colors: torch.Tensor,
         padded["live"], padded["control_num"],
         torch.full_like(padded["control_num"], 4))
     return GaussianState(**padded)
+
+
+def grow_state(state: GaussianState, new_capacity: int) -> GaussianState:
+    """Pool re-capacity (``gaussians.py:215-231``): a NEW GaussianState with
+    every per-Gaussian tensor padded by dead slots up to ``new_capacity``
+    (control_num 4 on dead slots, as :func:`create_state` leaves them). The
+    old module is left as it was; its holders (the Adam moments, the step
+    variants) must take the new one (``train/densify.py::grow_pool``)."""
+    if new_capacity < state.capacity:
+        raise ValueError(f"new capacity {new_capacity} < {state.capacity}")
+    with torch.no_grad():
+        grown = {f: _padded(getattr(state, f).detach(), new_capacity)
+                 for f in GaussianState._fields}
+        grown["control_num"] = torch.where(
+            grown["live"], grown["control_num"],
+            torch.full_like(grown["control_num"], 4))
+    return GaussianState(**grown)

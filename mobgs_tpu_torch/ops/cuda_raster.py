@@ -42,7 +42,8 @@ The plain versions (:func:`composite_tiles_plain`,
 chunks, the chunk-level early exit per tile — and process all tiles at
 once. They serve CPU tensors (and ``backend="plain"``);
 :func:`composite_fwd` and :func:`composite_bwd` launch the kernels for CUDA
-tensors or raise. Gradients reach ``rec`` and ``col`` through one
+tensors or raise; past 32 colour columns they launch them once per column
+group (:func:`column_groups`). Gradients reach ``rec`` and ``col`` through one
 ``torch.autograd.Function`` per route: the kernels' for CUDA tensors, the
 plain backward's for the plain route, never autograd through the plain
 forward's ops.
@@ -66,7 +67,7 @@ P = TILE * TILE  # 256 pixels per tile
 CH = 64          # minimum chunk unit; max_per_tile must divide by this
 CH_MAX = 128     # preferred chunk size
 R = 8            # record row: mx, my, conic a, b, c, opacity, subset opacity, pad
-CE_MAX = 32      # widest channel count the kernel takes (flow-on mid render: 29)
+CE_GROUP = 32    # widest instance of the kernels; wider composites run in column groups
 ALPHA_MAX = 0.99
 ALPHA_MIN = 1.0 / 255.0
 TRANS_EPS = 1e-4
@@ -207,8 +208,8 @@ def _check_operands(kernel: str, ids, counts, rec, col, pixel=()):
     CE = col.shape[1]
     if K % CH != 0:
         raise ValueError(f"{kernel}: K={K} is not a multiple of {CH}")
-    if not 1 <= CE <= CE_MAX:
-        raise ValueError(f"{kernel}: CE={CE} outside [1, {CE_MAX}]")
+    if CE < 1:
+        raise ValueError(f"{kernel}: CE={CE} is not positive")
     if counts.shape != (T,) or rec.shape[1] != R or col.shape[0] != rec.shape[0]:
         raise ValueError(f"{kernel}: operand shapes disagree: "
                          f"ids {tuple(ids.shape)} counts {tuple(counts.shape)} "
@@ -223,13 +224,47 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def column_groups(CE: int) -> list[tuple[int, int]]:
+    """The column ranges ``[a, b)`` a composite of CE channels launches as:
+    one range up to CE_GROUP, else ceil(CE / CE_GROUP) ranges of near-equal
+    width (CE=33: 17 + 16; CE=65: 22 + 22 + 21).
+
+    Splitting by columns is exact: the colour sums are independent per
+    column, and the transmittance, the gates and the per-tile exit depend
+    on the records alone. With the sub chain every group launches the
+    ``SUB=true`` instance, so that each group's tiles exit where the one
+    launch's would (on both chains, not on the first alone); the backward
+    hands ``g2`` to the first group only and zeros to the others, whose sub
+    chain then adds exact zeros, so its row-6 and σ terms count once. The
+    per-slot gradients of the records are sums over columns of per-column
+    terms, so the groups' ``grad_rec`` tables add up to the one launch's.
+    """
+    n = -(-CE // CE_GROUP)
+    width, extra = divmod(CE, n)
+    bounds, a = [], 0
+    for i in range(n):
+        b = a + width + (1 if i < extra else 0)
+        bounds.append((a, b))
+        a = b
+    return bounds
+
+
 def _launch(ids, counts, rec, col, ntx: int, sub: bool):
-    """Launch the forward kernel on the current stream; returns
-    (out, out2|None)."""
+    """Launch the forward kernel on the current stream, once per column
+    group (:func:`column_groups`); returns (out, out2|None)."""
     _check_operands("raster_fwd", ids, counts, rec, col)
     if rec.data_ptr() % 16:
         raise ValueError("raster_fwd: rec is not 16-byte aligned (records "
                          "are copied 16 bytes at a time)")
+    outs, out2 = [], None
+    for a, b in column_groups(col.shape[1]):
+        o, o2 = _launch_group(ids, counts, rec, col[:, a:b].contiguous(), ntx, sub)
+        outs.append(o)
+        out2 = o2 if out2 is None else out2
+    return (outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)), out2
+
+
+def _launch_group(ids, counts, rec, col, ntx: int, sub: bool):
     T, K = ids.shape
     CE = col.shape[1]
     dev = rec.device
@@ -248,14 +283,29 @@ def _launch(ids, counts, rec, col, ntx: int, sub: bool):
 
 
 def _launch_bwd(ids, counts, rec, col, out, out2, g, g2, ntx: int, sub: bool):
-    """Launch the backward kernel on the current stream; returns
-    (grad_rec [N, R], grad_col [N, CE])."""
+    """Launch the backward kernel on the current stream, once per column
+    group (:func:`column_groups`); returns (grad_rec [N, R], grad_col
+    [N, CE])."""
     T, K = ids.shape
     N, CE = col.shape
     pixel = [("out", out, (T, P, CE)), ("g", g, (T, P, CE))]
     if sub:
         pixel += [("out2", out2, (T, P)), ("g2", g2, (T, P))]
     _check_operands("raster_bwd", ids, counts, rec, col, pixel)
+    grad_rec, grad_cols = None, []
+    for i, (a, b) in enumerate(column_groups(CE)):
+        gr, gc = _launch_bwd_group(
+            ids, counts, rec, col[:, a:b].contiguous(), out[..., a:b].contiguous(),
+            out2, g[..., a:b].contiguous(),
+            g2 if i == 0 or g2 is None else torch.zeros_like(g2), ntx, sub)
+        grad_rec = gr if grad_rec is None else grad_rec + gr
+        grad_cols.append(gc)
+    return grad_rec, grad_cols[0] if len(grad_cols) == 1 else torch.cat(grad_cols, dim=1)
+
+
+def _launch_bwd_group(ids, counts, rec, col, out, out2, g, g2, ntx: int, sub: bool):
+    T, K = ids.shape
+    N, CE = col.shape
     dev = rec.device
     grad_rec = torch.zeros((N, R), dtype=torch.float32, device=dev)
     grad_col = torch.zeros((N, CE), dtype=torch.float32, device=dev)

@@ -5,7 +5,7 @@ The reference's per-Gaussian Adam groups (``gaussian_model.py:590-661``,
 eps=1e-15) become one moment tensor per parameter tensor, kept in an
 ``AdamState`` beside the parameters rather than inside a
 ``torch.optim.Adam``: densify writes into the moments of the slots it
-allocates (a later slice), which needs them as plain tensors. The update is
+allocates, which needs them as plain tensors. The update is
 in place under ``torch.no_grad()``: parameters and moments are overwritten,
 where the JAX package returns new arrays. Bias corrections and scheduled
 rates are computed in float32 on the host, as the JAX step computes them in
@@ -33,6 +33,24 @@ class AdamState(NamedTuple):
 def init_adam(params: Sequence[torch.Tensor]) -> AdamState:
     return AdamState(mu=tuple(torch.zeros_like(p) for p in params),
                      nu=tuple(torch.zeros_like(p) for p in params), step=0)
+
+
+def grow_adam(state: AdamState, old_capacity: int,
+              new_capacity: int) -> AdamState:
+    """Zero-pad the per-Gaussian moments to a grown pool (``optim.py:35-54``;
+    the reference's ``cat_tensors_to_optimizer`` extends exp_avg /
+    exp_avg_sq with zeros, ``gaussian_model.py:1102-1105``). Moments whose
+    leading axis is not ``old_capacity`` pass through; ``step`` is kept.
+    Returns new tensors: the old state is left as it was."""
+    pad_n = new_capacity - old_capacity
+
+    def pad(x):
+        if x.dim() == 0 or x.shape[0] != old_capacity:
+            return x
+        return torch.cat([x, x.new_zeros((pad_n,) + tuple(x.shape[1:]))])
+
+    return AdamState(mu=tuple(pad(m) for m in state.mu),
+                     nu=tuple(pad(v) for v in state.nu), step=state.step)
 
 
 @torch.no_grad()

@@ -249,15 +249,23 @@ def make_train_step(opt_cfg, width: int, height: int, max_time: float,
                     raster_cfg: RasterConfig = RasterConfig(),
                     spatial_lr_scale: float = 5.0, use_blce: bool = True,
                     with_latents: bool = True,
-                    with_exposure_delta: bool = True):
+                    with_exposure_delta: bool = True,
+                    with_omega_freeze: bool = False):
     """Build the per-iteration update ``train_step(ts, batch) -> (ts,
     Metrics)`` (``step.py:383-474``). It runs on the device the state lives
-    on."""
+    on, and reads the state's Parameters from ``ts`` on every call, so a
+    state whose pools grew between calls needs no new step.
+
+    with_omega_freeze: densify mode 1 past iteration 8001
+    (helper_train.py:191-194): the step takes two more arguments, [M] bool
+    masks of the static and the dynamic pool, and applies
+    ``densify.apply_omega_freeze`` to the Gaussian gradients before Adam."""
     forward = make_forward(opt_cfg, width, height, max_time, num_warp,
                            raster_cfg, use_blce, with_latents,
                            with_exposure_delta)
 
-    def train_step(ts: TrainState, batch: Batch):
+    def train_step(ts: TrainState, batch: Batch, stat_omega_mask=None,
+                   dyn_omega_mask=None):
         stat_p, _ = G.split_diff(ts.stat)
         dyn_p, _ = G.split_diff(ts.dyn)
         sand_p = sandwich_leaves(ts.sandwich)
@@ -283,6 +291,11 @@ def make_train_step(opt_cfg, width: int, height: int, max_time: float,
             split.append(grads[i:i + len(grp)])
             i += len(grp)
         g_stat, g_dyn, g_sand, g_blce, (g_off,) = split
+        if with_omega_freeze:
+            g_stat = densify.apply_omega_freeze(G.DiffFields(*g_stat),
+                                                stat_omega_mask)
+            g_dyn = densify.apply_omega_freeze(G.DiffFields(*g_dyn),
+                                               dyn_omega_mask)
 
         with torch.no_grad():
             # densification stats from the view-space gradient

@@ -19,7 +19,12 @@ index_add_, and the suffix-anchor subtraction amplifies that by up to
 1/(1 − α) ≤ 100. The train step's gradients through the kernels vs the
 plain route, flow off and flow on: the same, per leaf, STEP_REL, looser for
 BLCE's pose leaves, where the exp-map's 1/|w| axis normalisation
-multiplies the differences.
+multiplies the differences. Composites wider than 32 columns (column
+groups) and max_per_tile up to 2048 at the same tolerances as the rest.
+Densify on the card vs the CPU: masks and drop counts exactly, rows 1e-6
+(the same formulas; the split noise is drawn on the CPU). Six loop
+iterations through the kernels vs the plain route: loss rtol 1e-5 per
+iteration, live counts, budgets and capacities equal.
 """
 
 import numpy as np
@@ -34,6 +39,7 @@ from mobgs_tpu_torch.models import blce as B
 from mobgs_tpu_torch.models.sandwich import init_sandwich
 from mobgs_tpu_torch.ops import cuda_raster, projection, tiles
 from mobgs_tpu_torch.ops.rasterize import RasterConfig
+from mobgs_tpu_torch.train import densify as D
 from mobgs_tpu_torch.train import step as S
 
 W, H = 64, 48
@@ -42,7 +48,11 @@ TILE_PX = 16
 ATOL = 1e-4
 BWD_REL = 1e-4   # measured at most 1.2e-6 at the protocol view (chip_smoke.py)
 STEP_REL = 1e-3  # measured at most 6e-7 per leaf at protocol shape
-CASES = ("default", "sub", "alpha_only", "image_only", "wide_ce29")
+CASES = ("default", "sub", "alpha_only", "image_only", "wide_ce29", "wide_ce33_sub",
+         "wide_ce65_sub")
+# colour columns of the wide cases (the flow-on mid render at E = 9, 11, 27:
+# 9 + 2E colours and flows, + depth and weight = CE 29, 33, 65)
+WIDTH = {"wide_ce29": 27, "wide_ce33_sub": 31, "wide_ce65_sub": 63}
 # the forward on the tile lists of _edge_operands: (scene, random colour
 # columns, + depth and ones columns, sub chain) at CE = 2, 4 (get_flow_static),
 # 9, 11 + sub and 29 + sub; counts that are no multiple of a thread's pixels
@@ -74,10 +84,10 @@ def _inputs(case, dev, n=300, K=128, seed=0):
                                 torch.eye(4, device=dev), to(KMAT), W, H)
     bins = tiles.bin_gaussians(splats, W, H, tiles_per_gauss=36, max_per_tile=K)
     opac = to(rng.uniform(0.2, 0.95, size=n).astype(np.float32))
-    width = 27 if case == "wide_ce29" else 9
+    width = WIDTH.get(case, 9)
     kw = dict(colors=to(rng.uniform(size=(n, width)).astype(np.float32)),
               background=to(np.linspace(0.05, 0.45, width).astype(np.float32)))
-    if case == "sub":
+    if case.endswith("sub"):
         kw["sub_opacities"] = opac * to((np.arange(n) % 3 == 0).astype(np.float32))
     elif case == "alpha_only":
         kw = dict(colors=torch.zeros(n, 0, device=dev))
@@ -114,7 +124,9 @@ def test_kernel_matches_plain_on_card(case, cuda):
                                     backend="plain", **kw)
     torch.cuda.synchronize()
     name = "raster_fwd_sub" if "sub_opacities" in kw else "raster_fwd"
-    assert cuda_raster.launches[name] == before[name] + 1
+    ce = cols.shape[1] + kw.get("want_depth", True) + kw.get("want_alpha", True)
+    assert cuda_raster.launches[name] == before[name] + len(cuda_raster.column_groups(ce))
+    assert len(cuda_raster.column_groups(ce)) == {33: 2, 65: 3}.get(ce, 1)
     assert len(k) == len(p)
     _check(k, p, depth=kw.get("want_depth", True))
 
@@ -123,8 +135,8 @@ def test_kernel_matches_plain_on_card(case, cuda):
 def test_kernel_rejects_what_it_cannot_take(cuda):
     bins, splats, opac, kw = _inputs("default", cuda)
     rec = cuda_raster.pack_records(splats, opac)
-    col = torch.zeros(opac.shape[0], 33, device=cuda)
-    with pytest.raises(ValueError, match="CE=33"):
+    col = torch.zeros(opac.shape[0], 0, device=cuda)
+    with pytest.raises(ValueError, match="CE=0"):
         cuda_raster.composite_fwd(bins.gauss_ids, bins.counts, rec, col,
                                   bins.n_tiles_x)
     with pytest.raises(ValueError, match="contiguous"):
@@ -181,6 +193,8 @@ BWD_CASES = {"image_only_ce9": (9, False, False, "binned"),
              "sub_ce11": (9, True, True, "binned"),
              "alpha_only_ce2": (0, True, False, "binned"),
              "wide_sub_ce29": (27, True, True, "binned"),
+             "wide_sub_ce33": (31, True, True, "binned"),
+             "wide_sub_ce65": (63, True, True, "binned"),
              "ragged_counts_ce9": (9, False, False, "ragged"),
              "ragged_counts_sub_ce11": (9, True, True, "ragged"),
              "k64_ce11": (9, True, False, "k64"),
@@ -321,7 +335,7 @@ def test_backward_kernel_matches_plain_on_card(case, cuda):
     k = cuda_raster.composite_bwd(*args)
     p = cuda_raster.composite_bwd_plain(*args)
     torch.cuda.synchronize()
-    assert cuda_raster.launches[name] == before + 1
+    assert cuda_raster.launches[name] == before + len(cuda_raster.column_groups(args[3].shape[1]))
     n_rows = 7 if sub else 6
     for j in range(n_rows):
         assert float(p[0][:, j].abs().max()) > 0, j
@@ -349,7 +363,7 @@ def test_backward_kernel_repeats_on_card(cuda):
     assert _rel_err(a[1], b[1]) <= BWD_REL
 
 
-def _small_train_state(dev, seed=0):
+def _small_train_state(dev, seed=0, num_warp=3):
     rng = np.random.default_rng(seed)
     pts = rng.normal(size=(260, 3)).astype(np.float32)
     pts[:, 2] = pts[:, 2] * 0.5 + 6.0
@@ -365,7 +379,7 @@ def _small_train_state(dev, seed=0):
                          traj_times=torch.as_tensor(tt), device=dev)
     sw = init_sandwich(torch.Generator(device=dev).manual_seed(1), device=dev)
     blce = B.init_blce(torch.Generator(device=dev).manual_seed(2), num_views=6,
-                       num_warp=3, device=dev)
+                       num_warp=num_warp, device=dev)
     to = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)  # noqa: E731
     batch = S.Batch(view_idx=torch.tensor([1, 4], device=dev),
                     w2c=to(np.tile(np.eye(4), (2, 1, 1))), K=to(np.stack([KMAT] * 2)),
@@ -390,6 +404,15 @@ def test_flow_train_step_kernels_match_plain_on_card(cuda):
     _with_f32_convolutions(_step_kernels_vs_plain, cuda, 1e-2)
 
 
+@pytest.mark.gpu
+def test_flow_train_step_e11_kernels_match_plain_on_card(cuda):
+    """The flow-on step at E=11: its mid render is CE = 9 + 22 + 2 = 33 with
+    the sub chain, wider than one kernel instance, so it runs in two column
+    groups (C.1), forward and backward; the exposure-flow passes stay
+    CE=11 + sub."""
+    _with_f32_convolutions(_step_kernels_vs_plain, cuda, 1e-2, 11)
+
+
 def _with_f32_convolutions(fn, *args):
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False  # the SSIM convolution in full f32
@@ -399,15 +422,16 @@ def _with_f32_convolutions(fn, *args):
         torch.backends.cudnn.allow_tf32 = tf32
 
 
-def _step_kernels_vs_plain(cuda, lambda_flow):
-    ts, batch = _small_train_state(cuda)
+def _step_kernels_vs_plain(cuda, lambda_flow, num_warp=3):
+    E = num_warp
+    ts, batch = _small_train_state(cuda, num_warp=E)
     opt = OptimizationParams(iterations=100, lambda_flow_loss=lambda_flow)
     cfg = RasterConfig(max_per_tile=256)
     leaves = [*G.split_diff(ts.stat)[0], *G.split_diff(ts.dyn)[0],
               *S.sandwich_leaves(ts.sandwich), *ts.blce.params.leaves()]
     res = {}
     for backend in ("cuda", "plain"):
-        fwd = S.make_forward(opt, W, H, 1.0, 3, cfg._replace(backend=backend))
+        fwd = S.make_forward(opt, W, H, 1.0, E, cfg._replace(backend=backend))
         off = torch.zeros((2, 320, 2), device=cuda, requires_grad=True)
         total, aux = fwd(ts.stat, ts.dyn, ts.sandwich, ts.blce, off, batch)
         res[backend] = (float(total.detach()), float(aux["flow"].detach()), torch.autograd.grad(
@@ -424,14 +448,17 @@ def _step_kernels_vs_plain(cuda, lambda_flow):
         assert _rel_err(k, p) <= STEP_REL
     assert n_checked > 20
     before = dict(cuda_raster.launches)
-    ts, m = S.make_train_step(opt, W, H, 1.0, 3, cfg)(ts, batch)
+    ts, m = S.make_train_step(opt, W, H, 1.0, E, cfg)(ts, batch)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(m.loss)) and ts.step == 1
-    # per view: 2 latent renders and the mid render with the sub chain, and
-    # with flow on 2 exposure-flow passes with it too
-    n_sub = 6 if lambda_flow > 0 else 2
+    # per view: E-1 latent renders and the mid render with the sub chain (in
+    # column groups past CE=32), and with flow on E-1 exposure-flow passes
+    # with it too
+    mid_ce = 9 + 2 * E + 2 if lambda_flow > 0 else 11
+    n_sub = 2 * len(cuda_raster.column_groups(mid_ce)) + (2 * (E - 1) if lambda_flow > 0 else 0)
     assert {k: cuda_raster.launches[k] - before[k] for k in before} == {
-        "raster_fwd": 4, "raster_fwd_sub": n_sub, "raster_bwd": 4, "raster_bwd_sub": n_sub}
+        "raster_fwd": 2 * (E - 1), "raster_fwd_sub": n_sub,
+        "raster_bwd": 2 * (E - 1), "raster_bwd_sub": n_sub}
 
 
 @pytest.mark.gpu
@@ -465,3 +492,158 @@ def test_exposure_update_kernels_match_plain_on_card(cuda):
     np.testing.assert_allclose(k.cpu().numpy(), p.cpu().numpy(), rtol=1e-3)
     rest = np.setdiff1d(np.arange(V), ids)
     assert torch.equal(k[rest], old[rest]) and torch.equal(ts.blce.exposure_expo, old)
+
+
+def _deep_operands(K, sub, dev):
+    """A binned scene whose tiles hold more than 2048 entries each and whose
+    walks do not saturate early (opacities 0.01-0.03), so the kernels walk
+    deep into lists of K entries; CE=9, or 9 + depth + weight with the sub
+    chain."""
+    rng = np.random.default_rng(4)
+    n = 3000
+    means = rng.normal(size=(n, 3)).astype(np.float32) * np.float32([0.6, 0.45, 0.3])
+    means[:, 2] += 6.0
+    quats = rng.normal(size=(n, 4)).astype(np.float32)
+    scales = np.exp(rng.uniform(-3.0, -2.0, size=(n, 3))).astype(np.float32)
+    to = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    splats = projection.project(to(means), to(quats), to(scales), torch.eye(4, device=dev),
+                                to(KMAT), W, H)
+    bins = tiles.bin_gaussians(splats, W, H, tiles_per_gauss=36, max_per_tile=K)
+    opac = to(rng.uniform(0.01, 0.03, size=n).astype(np.float32))
+    cols = [to(rng.uniform(size=(n, 9)).astype(np.float32))]
+    if sub:
+        cols += [splats.depths[:, None], torch.ones(n, 1, device=dev)]
+    rec = cuda_raster.pack_records(splats, opac, opac * to((np.arange(n) % 3 == 0)
+                                                           .astype(np.float32)) if sub else None)
+    return (bins.gauss_ids.contiguous(), bins.counts.contiguous(), rec,
+            torch.cat(cols, 1).contiguous(), bins.n_tiles_x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel,K", [("fwd", 1024), ("fwd", 1536), ("fwd", 2048),
+                                      ("bwd", 1024), ("bwd", 1536)])
+@pytest.mark.parametrize("sub", [False, True])
+def test_large_max_per_tile_matches_plain_on_card(kernel, K, sub, cuda):
+    """max_per_tile up to the loop's escalation ladder (1536) and the
+    validation's reference budget (2048): the walks reach past the middle of
+    the lists, and the kernels agree with the plain versions."""
+    ids, cnt, rec, col, ntx = _deep_operands(K, sub, cuda)
+    work = {}
+    with torch.no_grad():
+        out, out2 = cuda_raster.composite_fwd(ids, cnt, rec, col, ntx, sub)
+        p = cuda_raster.composite_tiles_plain(ids, cnt, rec, col, ntx, sub, work=work)
+    torch.cuda.synchronize()
+    assert int(cnt.max()) == K and int(work["slots"].max()) > K // 2
+    if kernel == "fwd":
+        np.testing.assert_allclose(out.cpu().numpy(), p[0].cpu().numpy(), atol=ATOL)
+        if sub:
+            np.testing.assert_allclose(out2.cpu().numpy(), p[1].cpu().numpy(), atol=ATOL)
+        return
+    rng = np.random.default_rng(5)
+    g = torch.as_tensor(rng.normal(size=out.shape).astype(np.float32), device=cuda)
+    g2 = torch.as_tensor(rng.normal(size=out2.shape).astype(np.float32),
+                         device=cuda) if sub else None
+    args = (ids, cnt, rec, col, out, out2, g, g2, ntx, sub)
+    k = cuda_raster.composite_bwd(*args)
+    pb = cuda_raster.composite_bwd_plain(*args)
+    for j in range(7 if sub else 6):
+        assert _rel_err(k[0][:, j], pb[0][:, j]) <= BWD_REL, j
+    assert _rel_err(k[1], pb[1]) <= BWD_REL
+
+
+def _state_with_stats(dev):
+    """A small training state whose densify statistics send some Gaussians
+    to clone and some to split, on a pool with few free slots."""
+    ts, _ = _small_train_state(torch.device("cpu"))
+    rng = np.random.default_rng(6)
+    M = ts.stat.capacity
+    g = 1e-3 * np.exp(rng.uniform(-1.5, 1.5, size=M)).astype(np.float32)
+    stats = D.DensifyStats(torch.as_tensor(2 * g), torch.full((M,), 2.0),
+                           torch.zeros(M))
+    with torch.no_grad():
+        ts.stat.scaling.add_(torch.as_tensor(rng.uniform(-1.0, 1.0, size=(M, 3))
+                                             .astype(np.float32)))
+    if dev.type == "cuda":
+        ts = _to_device(ts, dev)
+        stats = D.DensifyStats(*(x.to(dev) for x in stats))
+    return ts, stats
+
+
+def _to_device(ts, dev):
+    from mobgs_tpu_torch.io import checkpoint
+    return checkpoint.unflatten_train_state(checkpoint.flatten_train_state(ts), dev)
+
+
+@pytest.mark.gpu
+def test_densify_clone_split_on_card_matches_cpu(cuda):
+    """Clone and split on the card and on the CPU from the same state and
+    statistics (the split noise is drawn on the CPU, keyed): the live masks
+    and drop counts equal, rows within 1e-6."""
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        ts, stats = _state_with_stats(dev)
+        st, opt, _, dropped = D.densify_clone_split(ts.stat, stats, ts.stat_opt, (0, 4, 1),
+                                                    1e-3, percent_dense=0.01, scene_extent=5.0)
+        out[dev.type] = (st, opt, int(dropped))
+    (sc, oc, dc), (sk, ok, dk) = out["cpu"], out["cuda"]
+    assert dc == dk > 0
+    assert torch.equal(sc.live, sk.live.cpu()) and int(sc.num_live()) > 200
+    for f in G.GaussianState._fields:
+        np.testing.assert_allclose(getattr(sk, f).detach().cpu().numpy(),
+                                   getattr(sc, f).detach().numpy(), atol=1e-6, rtol=1e-6,
+                                   err_msg=f)
+    for a, b in zip(ok.mu + ok.nu, oc.mu + oc.nu):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.gpu
+def test_grow_pool_on_card(cuda):
+    ts, _ = _state_with_stats(cuda)
+    M = ts.stat.capacity
+    st, opt, stats, cap = D.grow_pool(ts.stat, ts.stat_opt, ts.stat_stats, dropped=500)
+    assert cap == 2048 and st.capacity == cap  # 1.5 x (256 + 500), in 1024s and st is not ts.stat and ts.stat.capacity == M
+    assert st.xyz.device.type == "cuda" and all(m.shape[0] == cap for m in opt.mu + opt.nu)
+    assert torch.equal(st.xyz[:M], ts.stat.xyz) and torch.equal(st.live[:M], ts.stat.live)
+    assert not st.live[M:].any() and bool((st.control_num[M:] == 4).all())
+    assert not any(m[M:].any() for m in opt.mu + opt.nu) and not stats.denom[M:].any()
+
+
+@pytest.mark.gpu
+def test_train_loop_kernels_match_plain_on_card(cuda):
+    """Six iterations of ``train/loop.py::train`` flow on, with densify
+    rounds at 2, 4 and 6 and a pool that grows, through the kernels and
+    through the plain route from the same state: the same live counts and
+    capacities, loss per iteration within 1e-5."""
+    from mobgs_tpu_torch.config import BlceParams
+    from mobgs_tpu_torch.data.synthetic import SceneData
+    from mobgs_tpu_torch.train import loop as L
+    V = 6
+    w2c = np.tile(np.eye(4, dtype=np.float32), (V, 1, 1))
+    for v in range(V):
+        a = 0.05 * (v - V / 2)
+        w2c[v, :3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
+        w2c[v, :3, 3] = [0.1 * v - 0.25, 0.02 * v, 0.05 * v]
+    rng = np.random.default_rng(7)
+    data = SceneData(w2c=w2c, K=np.tile(KMAT, (V, 1, 1)),
+                     time=np.linspace(0, 1, V).astype(np.float32),
+                     images=rng.uniform(size=(V, H, W, 3)).astype(np.float32),
+                     depths=rng.uniform(4.0, 8.0, size=(V, H, W)).astype(np.float32),
+                     blur_feats=rng.uniform(0.2, 0.6, size=V).astype(np.float32),
+                     masks=np.zeros((V, H, W), np.float32), width=W, height=H,
+                     max_time=1.0, test_w2c=w2c,
+                     test_images=np.zeros((V, H, W, 3), np.float32))
+    opt = OptimizationParams(iterations=100, batch_size=2, densify_from_iter=1,
+                             densification_interval=2, desicnt=2, opacity_reset_interval=4,
+                             densify_grad_threshold=1e-5)
+    hist = {}
+    for backend in ("cuda", "plain"):
+        ts, _ = _small_train_state(cuda)
+        ts, hist[backend] = L.train(ts, data, opt, BlceParams(num_warp=3), 6,
+                                    raster_cfg=RasterConfig(max_per_tile=256, backend=backend),
+                                    scene_extent=6.0, log_every=1, device=cuda)
+        hist[backend].append((ts.stat.capacity, ts.dyn.capacity))
+    assert hist["cuda"][-1] == hist["plain"][-1] != (256, 64)
+    for a, b in zip(hist["cuda"][:-1], hist["plain"][:-1], strict=True):
+        assert (a["n_stat"], a["n_dyn"], a["max_per_tile"]) == (b["n_stat"], b["n_dyn"],
+                                                                b["max_per_tile"])
+        np.testing.assert_allclose(a["loss"], b["loss"], rtol=1e-5, err_msg=str(a["iter"]))

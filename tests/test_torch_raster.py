@@ -281,3 +281,58 @@ def test_compositor_autograd_routes(scene):
     with pytest.raises(ValueError, match="not CUDA"):
         cuda_raster._launch_bwd(ids, counts, rec.detach(), col.detach(),
                                 out.detach(), out2.detach(), g, g2, ntx, True)
+
+
+@pytest.mark.parametrize("CE", [9, 32, 33, 65])
+@pytest.mark.parametrize("sub", [False, True])
+def test_column_groups_compose_the_one_launch(CE, sub, monkeypatch):
+    """A composite wider than one kernel instance runs in column groups
+    (``cuda_raster.column_groups``). With each group's launch replaced by the
+    plain version, the grouped forward and backward give the one-launch
+    results: the columns concatenate, the sub chain's alpha map and its
+    gradient count once, the record gradients add up. The launches are
+    counted per group under their own widths."""
+    def group(ids, counts, rec, col, ntx, sub_):
+        cuda_raster._count("raster_fwd_sub" if sub_ else "raster_fwd", col.shape[1])
+        return cuda_raster.composite_tiles_plain(ids, counts, rec, col, ntx, sub_)
+
+    def bwd_group(*args):
+        cuda_raster._count("raster_bwd_sub" if args[-1] else "raster_bwd", args[3].shape[1])
+        return cuda_raster.composite_bwd_plain(*args)
+
+    monkeypatch.setattr(cuda_raster, "_launch_group", group)
+    monkeypatch.setattr(cuda_raster, "_launch_bwd_group", bwd_group)
+    monkeypatch.setattr(cuda_raster, "_check_operands", lambda *a, **k: None)
+    rng = np.random.default_rng(CE)
+    T, K, N, ntx = 6, 128, 300, 3
+    ids = t(np.stack([rng.permutation(N)[:K] for _ in range(T)]).astype(np.int32))
+    cnt = t(np.array([0, 1, 37, 64, 100, 128], np.int32))
+    rec = np.zeros((N, cuda_raster.R), np.float32)
+    rec[:, :2] = rng.uniform((0, 0), (48, 32), size=(N, 2))
+    rec[:, 2], rec[:, 4] = 0.05, 0.05
+    rec[:, 5] = rng.uniform(0.2, 0.9, N)
+    rec[:, 6] = rec[:, 5] * (np.arange(N) % 3 == 0) if sub else 0.0
+    rec, col = t(rec), t(rng.uniform(size=(N, CE)).astype(np.float32))
+    cuda_raster.reset_launches()
+    k = cuda_raster._launch(ids, cnt, rec, col, ntx, sub)
+    p = cuda_raster.composite_tiles_plain(ids, cnt, rec, col, ntx, sub)
+    groups = cuda_raster.column_groups(CE)
+    assert [b - a for a, b in groups] == {9: [9], 32: [32], 33: [17, 16],
+                                          65: [22, 22, 21]}[CE]
+    np.testing.assert_array_equal(k[0].numpy(), p[0].numpy())
+    if sub:
+        np.testing.assert_array_equal(k[1].numpy(), p[1].numpy())
+    g = t(rng.normal(size=p[0].shape).astype(np.float32))
+    g2 = t(rng.normal(size=p[1].shape).astype(np.float32)) if sub else None
+    kb = cuda_raster._launch_bwd(ids, cnt, rec, col, p[0], p[1], g, g2, ntx, sub)
+    pb = cuda_raster.composite_bwd_plain(ids, cnt, rec, col, p[0], p[1], g, g2, ntx, sub)
+    np.testing.assert_array_equal(kb[1].numpy(), pb[1].numpy())
+    # the record gradients: sums over the groups' columns, in another order
+    np.testing.assert_allclose(kb[0].numpy(), pb[0].numpy(), rtol=1e-5,
+                               atol=1e-5 * float(pb[0].abs().max()))
+    want = {}
+    for kind in (("fwd_sub", "bwd_sub") if sub else ("fwd", "bwd")):
+        for a, b in groups:
+            key = f"raster_{kind} CE={b - a}"
+            want[key] = want.get(key, 0) + 1
+    assert cuda_raster.instance_launches == want
