@@ -567,7 +567,6 @@ def main():
                     and e["depth/tol"] <= 1.0, f"{name} forward {e}")
             require(sum(fwd_groups.values()) == len(cuda_raster.column_groups(CE)),
                     f"{name}: forward launches {fwd_groups}")
-            errs[name] = e
         g = torch.as_tensor(rng.normal(size=out.shape).astype(np.float32), device=dev)
         g2 = (torch.as_tensor(rng.normal(size=out2.shape).astype(np.float32), device=dev)
               if sub else None)
@@ -1016,21 +1015,22 @@ def main():
         argsw = bwd_inputs[f"wide_mid_ce{CE}_sub"]
         _, _, recw, colw, *_ = argsw
         fg, bg_ = wide_groups[CE]
-        step_l = {k2: v for k2, v in e11_instances.items() if e_w == E_WIDE[0]
-                  and k2.startswith("raster_fwd_sub CE=") and k2 != "raster_fwd_sub CE=11"}
+
+        def on_path(groups):
+            if e_w != E_WIDE[0]:
+                return "no path run here"
+            counts = {k2: e11_instances.get(k2, 0) for k2 in groups}
+            return f"{counts} in one E={e_w} step"
+
         ms, plain_ms = time_fwd(ids, cnt, recw, colw, True)
         ops, bytes_, pairs, _ = fwd_cost(ids, cnt, recw, colw, True)
         instance_line(f"raster_fwd_sub CE={CE} mid render at E={e_w} (groups {fg})", ms,
-                      plain_ms, ops, bytes_, pairs, CE,
-                      f"{step_l} in one E={e_w} step" if step_l else "no path run here")
-        step_l = {k2: v for k2, v in e11_instances.items() if e_w == E_WIDE[0]
-                  and k2.startswith("raster_bwd_sub CE=") and k2 != "raster_bwd_sub CE=11"}
+                      plain_ms, ops, bytes_, pairs, CE, on_path(fg))
         ms = cuda_ms(lambda: cuda_raster.composite_bwd(*argsw), 50)
         plain_ms = cuda_ms(lambda: cuda_raster.composite_bwd_plain(*argsw), 5)
         ops, bytes_, pairs, _ = bwd_cost(ids, cnt, recw, colw, True)
         instance_line(f"raster_bwd_sub CE={CE} mid render at E={e_w} (groups {bg_}; with the "
-                      f"zeroed outputs)", ms, plain_ms, ops, bytes_, pairs, CE,
-                      f"{step_l} in one E={e_w} step" if step_l else "no path run here")
+                      f"zeroed outputs)", ms, plain_ms, ops, bytes_, pairs, CE, on_path(bg_))
 
     # get_flow_static's composite: the static set at the view's camera, the
     # flow between its neighbours' cameras, depth and weight (CE = 2 + 2)
@@ -1095,7 +1095,6 @@ def main():
               "CE=11+sub": (torch.cat([geom_k.colors, splats_k.depths[:, None], ones_k], 1)
                             .detach().contiguous(), True)}
     rng_k = np.random.default_rng(9)
-    k_ladder = {}
     for K in K_FWD:
         bins_k = tiles.bin_gaussians(splats_k, K_VIEW, K_VIEW,
                                      tiles_per_gauss=cfg.tiles_per_gauss, max_per_tile=K)
@@ -1128,7 +1127,6 @@ def main():
                     and e.get("sub_alpha", 0.0) <= IMG_ATOL and e.get("depth_tol", 0.0) <= 1.0,
                     f"K={K} forward {label} {e}")
             require(int(slots.max()) > K // 2, f"K={K}: the walks stopped at {int(slots.max())}")
-            k_ladder[f"fwd {label} K={K}"] = max(e.values())
             if K not in K_BWD:
                 continue
             g = torch.as_tensor(rng_k.normal(size=out.shape).astype(np.float32), device=dev)
@@ -1150,7 +1148,6 @@ def main():
             ops, bytes_, pairs, _ = bwd_cost(ids_k, cnt_k, rec, col, sub, ntx_k)
             instance_line(f"raster_bwd{'_sub' if sub else ''} {label} at K={K} (with the "
                           f"zeroed outputs)", ms, plain_ms, ops, bytes_, pairs, CE, "the ladder's")
-            k_ladder[f"bwd {label} K={K}"] = max(rel)
     times["k_ladder_s"] = time.time() - t0
 
     # ---- the host loop ----
