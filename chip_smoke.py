@@ -67,9 +67,10 @@ Sandwich and BLCE weights:
 14. the K ladder: a 128x128 view of the scene (focal length a quarter of
     the protocol's, so its 64 tiles hold thousands of entries each) with
     the opacities scaled by 0.1 (so the walks go deep before they
-    saturate): the forward at max_per_tile 1024, 1536 and 2048 (CE=9, and
-    CE=11 + sub) and the backward at 1024 and 1536, each against its plain
-    version and timed beside its bound;
+    saturate): the forward at max_per_tile 1024, 1536 and 2048 (CE=9, CE=11
+    as the capacity validation renders, and CE=11 + sub) and the backward at
+    1024 and 1536, each against its plain version and timed beside its
+    bound;
 15. the host loop at protocol width: ``train/loop.py::train`` for
     LOOP_ITERS iterations, flow on, with the densify schedule brought
     forward (boundaries every 4 iterations from 8; three static densify
@@ -79,7 +80,12 @@ Sandwich and BLCE weights:
     the host time and live counts per pool of each iteration, launches by
     instance, the peak device memory of the last iteration at the grown
     capacity, and the phase's seconds; then one more step at the grown
-    capacity: its own peak memory and a trace of it;
+    capacity and the last iteration's budgets (from the history): its own
+    peak memory; that step and an exposure update there through the kernels
+    against the plain route; phase 14's ladder at every budget the loop
+    could composite at that phase 14 did not hold (the budgets it ran at,
+    its validations' top budget, the validation and de-escalation ladders
+    below it), forward and backward; and a trace of the step;
 16. a 10-iteration loop on a reduced scene (128x72) through the kernels and
     through the plain route from the same seeds: the same history length,
     loss per iteration within LOSS_RTOL, live counts and capacities equal
@@ -193,21 +199,6 @@ def recording_controller(real, out):
         return real(state, stats, opt_state, key, iteration, flag, opt_cfg,
                     scene_extent, is_dynamic, **kw)
     return controller
-
-
-class EventTee:
-    """stdout that also keeps the loop's event lines ("[grow] ...",
-    "[tile_max] ...", "[budgets] ...")."""
-
-    def __init__(self, out):
-        self.out, self.events = out, []
-
-    def write(self, text):
-        self.events += [ln for ln in text.splitlines() if ln.startswith("[")]
-        return self.out.write(text)
-
-    def flush(self):
-        self.out.flush()
 
 
 def require(ok, what):
@@ -618,14 +609,15 @@ def main():
                 "sandwich": S.sandwich_leaves(ts.sandwich),
                 "blce": ts.blce.params.leaves()}
 
-    def step_vs_plain(opt, ts, batch, num_warp=E_WARP):
+    def step_vs_plain(opt, ts, batch, num_warp=E_WARP, rcfg=cfg):
         """One step's loss and gradients through the kernels and through the
-        plain route, same state and batch; returns the kernel route's aux."""
+        plain route, same state, batch and budgets (``rcfg``); returns the
+        kernel route's aux."""
         groups = param_groups(ts)
         step_res = {}
         for backend in ("cuda", "plain"):
             fwd = S.make_forward(opt, W, H, data.max_time, num_warp,
-                                 cfg._replace(backend=backend))
+                                 rcfg._replace(backend=backend))
             off = torch.zeros((B_VIEWS, ts.stat.capacity + ts.dyn.capacity, 2),
                               device=dev, requires_grad=True)
             total, aux = fwd(ts.stat, ts.dyn, ts.sandwich, ts.blce, off, batch)
@@ -839,23 +831,31 @@ def main():
     expo_args = (on(expo_ids, torch.int64), on(data.w2c[expo_ids]), on(data.K[expo_ids]),
                  on(data.time[expo_ids]), on(data.blur_feats[expo_ids]), on(data.w2c[nb_fwd]),
                  on(data.w2c[nb_bwd]), on((expo_ids == 0) | (expo_ids == FRAMES - 1), torch.bool))
-    old = ts_f.blce.exposure_expo.clone()
-    new = {}
-    for backend in ("cuda", "plain"):
-        upd = S.make_exposure_update(W, H, data.max_time, E_WARP, cfg._replace(backend=backend))
-        new[backend] = upd(ts_f, *expo_args).blce.exposure_expo
-    torch.cuda.synchronize()
-    ek, ep = new["cuda"], new["plain"]
-    expo_rel = float(((ek - ep).abs() / ep.abs().clamp(min=1e-30)).max())
-    print(f"exposures at views {expo_ids.tolist()}: kernels {ek[expo_ids].tolist()} plain "
-          f"{ep[expo_ids].tolist()} (was {old[expo_ids].tolist()}); "
-          f"max rel diff {expo_rel:.3g}")
-    require(bool(torch.isfinite(ek).all()), "exposures not finite")
-    require(expo_rel <= EXPO_RTOL, f"exposure update kernels vs plain {expo_rel:.3g}")
-    rest = torch.ones(FRAMES, dtype=torch.bool, device=dev)
-    rest[expo_ids] = False
-    require(torch.equal(ek[rest], old[rest]) and torch.equal(ts_f.blce.exposure_expo, old),
-            "the update wrote outside the batch's views")
+
+    def expo_vs_plain(ts, rcfg):
+        """``make_exposure_update`` through the kernels and the plain route
+        at the budgets ``rcfg``; returns the kernels' new exposures."""
+        old = ts.blce.exposure_expo.clone()
+        new = {}
+        for backend in ("cuda", "plain"):
+            upd = S.make_exposure_update(W, H, data.max_time, E_WARP,
+                                         rcfg._replace(backend=backend))
+            new[backend] = upd(ts, *expo_args).blce.exposure_expo
+        torch.cuda.synchronize()
+        ek, ep = new["cuda"], new["plain"]
+        expo_rel = float(((ek - ep).abs() / ep.abs().clamp(min=1e-30)).max())
+        print(f"exposures at views {expo_ids.tolist()} (max_per_tile {rcfg.max_per_tile}): "
+              f"kernels {ek[expo_ids].tolist()} plain {ep[expo_ids].tolist()} (was "
+              f"{old[expo_ids].tolist()}); max rel diff {expo_rel:.3g}")
+        require(bool(torch.isfinite(ek).all()), "exposures not finite")
+        require(expo_rel <= EXPO_RTOL, f"exposure update kernels vs plain {expo_rel:.3g}")
+        rest = torch.ones(FRAMES, dtype=torch.bool, device=dev)
+        rest[expo_ids] = False
+        require(torch.equal(ek[rest], old[rest]) and torch.equal(ts.blce.exposure_expo, old),
+                "the update wrote outside the batch's views")
+        return ek
+
+    ek = expo_vs_plain(ts_f, cfg)
     expo_fn = S.make_exposure_update(W, H, data.max_time, E_WARP, cfg)
     expo_fn(ts_f, *expo_args)
     torch.cuda.synchronize()
@@ -1091,67 +1091,80 @@ def main():
     splats_k = projection.ProjectedSplats(*(x.detach() for x in splats_k))
     opac_k = (0.1 * geom_k.opacity).detach()
     ones_k = torch.ones(len(opac_k), 1, device=dev)
+    ext_k = torch.cat([geom_k.colors, splats_k.depths[:, None], ones_k], 1).detach().contiguous()
+    # the latent render, the capacity validation's render, the mid render
     k_cols = {"CE=9": (geom_k.colors.detach().contiguous(), False),
-              "CE=11+sub": (torch.cat([geom_k.colors, splats_k.depths[:, None], ones_k], 1)
-                            .detach().contiguous(), True)}
+              "CE=11": (ext_k, False), "CE=11+sub": (ext_k, True)}
     rng_k = np.random.default_rng(9)
-    for K in K_FWD:
-        bins_k = tiles.bin_gaussians(splats_k, K_VIEW, K_VIEW,
-                                     tiles_per_gauss=cfg.tiles_per_gauss, max_per_tile=K)
-        ids_k, cnt_k, ntx_k = (bins_k.gauss_ids.contiguous(), bins_k.counts.contiguous(),
-                               bins_k.n_tiles_x)
-        for label, (col, sub) in k_cols.items():
-            rec = cuda_raster.pack_records(splats_k, opac_k,
-                                           opac_k * geom_k.dyn_mask if sub else None).detach()
-            work = {}
-            with torch.no_grad():
-                out, out2 = cuda_raster.composite_fwd(ids_k, cnt_k, rec, col, ntx_k, sub)
-                p_out, p_out2 = cuda_raster.composite_tiles_plain(ids_k, cnt_k, rec, col, ntx_k,
-                                                                  sub, work=work)
-            CE = col.shape[1]
-            e = {"image": float((out[..., :9] - p_out[..., :9]).abs().max())}
-            if sub:
-                e.update(depth_tol=flow_err(out[..., 9], p_out[..., 9]),
-                         weight=float((out[..., 10] - p_out[..., 10]).abs().max()),
-                         sub_alpha=float((out2 - p_out2).abs().max()))
-            slots = work["slots"]
-            ms, plain_ms = time_fwd(ids_k, cnt_k, rec, col, sub, ntx_k, 20, 3)
-            ops, bytes_, pairs, _ = fwd_cost(ids_k, cnt_k, rec, col, sub, ntx_k)
-            print(f"K={K} forward {label}: {json.dumps(e)}; entries per tile mean "
-                  f"{float(cnt_k.float().mean()):.0f} max {int(cnt_k.max())}, slots walked max "
-                  f"{int(slots.max())} mean {float(slots.float().mean()):.0f}")
-            instance_line(f"raster_fwd{'_sub' if sub else ''} {label} at K={K} "
-                          f"({K_VIEW}x{K_VIEW}, T={ids_k.shape[0]})", ms, plain_ms, ops, bytes_,
-                          pairs, CE, "the ladder's")
-            require(e["image"] <= IMG_ATOL and e.get("weight", 0.0) <= IMG_ATOL
-                    and e.get("sub_alpha", 0.0) <= IMG_ATOL and e.get("depth_tol", 0.0) <= 1.0,
-                    f"K={K} forward {label} {e}")
-            require(int(slots.max()) > K // 2, f"K={K}: the walks stopped at {int(slots.max())}")
-            if K not in K_BWD:
-                continue
-            g = torch.as_tensor(rng_k.normal(size=out.shape).astype(np.float32), device=dev)
-            g2 = (torch.as_tensor(rng_k.normal(size=out2.shape).astype(np.float32),
-                                  device=dev) if sub else None)
-            args = (ids_k, cnt_k, rec, col, out, out2, g, g2, ntx_k, sub)
-            kb = cuda_raster.composite_bwd(*args)
-            pb = cuda_raster.composite_bwd_plain(*args)
-            torch.cuda.synchronize()
-            n_rows = 7 if sub else 6
-            rel = [float((kb[0][:, j] - pb[0][:, j]).abs().max())
-                   / max(float(pb[0][:, j].abs().max()), 1e-30) for j in range(n_rows)]
-            rel.append(float((kb[1] - pb[1]).abs().max()) / max(float(pb[1].abs().max()), 1e-30))
-            print(f"K={K} backward {label}: max |k-p|/max|p| per column "
-                  f"{[float(f'{r:.3g}') for r in rel]}")
-            require(all(np.isfinite(rel)) and max(rel) <= BWD_REL, f"K={K} backward {label}")
-            ms = cuda_ms(lambda: cuda_raster.composite_bwd(*args), 20)
-            plain_ms = cuda_ms(lambda: cuda_raster.composite_bwd_plain(*args), 3)
-            ops, bytes_, pairs, _ = bwd_cost(ids_k, cnt_k, rec, col, sub, ntx_k)
-            instance_line(f"raster_bwd{'_sub' if sub else ''} {label} at K={K} (with the "
-                          f"zeroed outputs)", ms, plain_ms, ops, bytes_, pairs, CE, "the ladder's")
+
+    def k_ladder(fwd_ks, bwd_ks):
+        """The forward at each K of ``fwd_ks`` and the backward at each of
+        ``bwd_ks`` on the 128x128 view, against their plain versions, timed
+        beside their bounds."""
+        for K in sorted(set(fwd_ks) | set(bwd_ks)):
+            bins_k = tiles.bin_gaussians(splats_k, K_VIEW, K_VIEW,
+                                         tiles_per_gauss=cfg.tiles_per_gauss, max_per_tile=K)
+            ids_k, cnt_k, ntx_k = (bins_k.gauss_ids.contiguous(), bins_k.counts.contiguous(),
+                                   bins_k.n_tiles_x)
+            for label, (col, sub) in k_cols.items():
+                rec = cuda_raster.pack_records(splats_k, opac_k,
+                                               opac_k * geom_k.dyn_mask if sub else None).detach()
+                work = {}
+                with torch.no_grad():
+                    out, out2 = cuda_raster.composite_fwd(ids_k, cnt_k, rec, col, ntx_k, sub)
+                    p_out, p_out2 = cuda_raster.composite_tiles_plain(ids_k, cnt_k, rec, col,
+                                                                      ntx_k, sub, work=work)
+                CE = col.shape[1]
+                e = {"image": float((out[..., :9] - p_out[..., :9]).abs().max())}
+                if CE > 9:
+                    e.update(depth_tol=flow_err(out[..., 9], p_out[..., 9]),
+                             weight=float((out[..., 10] - p_out[..., 10]).abs().max()))
+                if sub:
+                    e.update(sub_alpha=float((out2 - p_out2).abs().max()))
+                slots = work["slots"]
+                print(f"K={K} forward {label}: {json.dumps(e)}; entries per tile mean "
+                      f"{float(cnt_k.float().mean()):.0f} max {int(cnt_k.max())}, slots walked "
+                      f"max {int(slots.max())} mean {float(slots.float().mean()):.0f}")
+                require(e["image"] <= IMG_ATOL and e.get("weight", 0.0) <= IMG_ATOL
+                        and e.get("sub_alpha", 0.0) <= IMG_ATOL
+                        and e.get("depth_tol", 0.0) <= 1.0, f"K={K} forward {label} {e}")
+                require(int(slots.max()) > K // 2,
+                        f"K={K}: the walks stopped at {int(slots.max())}")
+                if K in fwd_ks:
+                    ms, plain_ms = time_fwd(ids_k, cnt_k, rec, col, sub, ntx_k, 20, 3)
+                    ops, bytes_, pairs, _ = fwd_cost(ids_k, cnt_k, rec, col, sub, ntx_k)
+                    instance_line(f"raster_fwd{'_sub' if sub else ''} {label} at K={K} "
+                                  f"({K_VIEW}x{K_VIEW}, T={ids_k.shape[0]})", ms, plain_ms,
+                                  ops, bytes_, pairs, CE, "the ladder's")
+                if K not in bwd_ks:
+                    continue
+                g = torch.as_tensor(rng_k.normal(size=out.shape).astype(np.float32), device=dev)
+                g2 = (torch.as_tensor(rng_k.normal(size=out2.shape).astype(np.float32),
+                                      device=dev) if sub else None)
+                args = (ids_k, cnt_k, rec, col, out, out2, g, g2, ntx_k, sub)
+                kb = cuda_raster.composite_bwd(*args)
+                pb = cuda_raster.composite_bwd_plain(*args)
+                torch.cuda.synchronize()
+                n_rows = 7 if sub else 6
+                rel = [float((kb[0][:, j] - pb[0][:, j]).abs().max())
+                       / max(float(pb[0][:, j].abs().max()), 1e-30) for j in range(n_rows)]
+                rel.append(float((kb[1] - pb[1]).abs().max())
+                           / max(float(pb[1].abs().max()), 1e-30))
+                print(f"K={K} backward {label}: max |k-p|/max|p| per column "
+                      f"{[float(f'{r:.3g}') for r in rel]}")
+                require(all(np.isfinite(rel)) and max(rel) <= BWD_REL,
+                        f"K={K} backward {label}")
+                ms = cuda_ms(lambda: cuda_raster.composite_bwd(*args), 20)
+                plain_ms = cuda_ms(lambda: cuda_raster.composite_bwd_plain(*args), 3)
+                ops, bytes_, pairs, _ = bwd_cost(ids_k, cnt_k, rec, col, sub, ntx_k)
+                instance_line(f"raster_bwd{'_sub' if sub else ''} {label} at K={K} (with the "
+                              f"zeroed outputs)", ms, plain_ms, ops, bytes_, pairs, CE,
+                              "the ladder's")
+
+    k_ladder(K_FWD, K_BWD)
     times["k_ladder_s"] = time.time() - t0
 
     # ---- the host loop ----
-    import contextlib
     from mobgs_tpu_torch.config import BlceParams
     from mobgs_tpu_torch.train import densify as D
 
@@ -1177,16 +1190,15 @@ def main():
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(dev)
 
-    tee = EventTee(sys.stdout)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     cuda_raster.reset_launches()
     t0 = time.time()
-    with contextlib.redirect_stdout(tee):
-        ts_l, hist_l = L.train(ts_l, data, loop_opt, loop_blce, LOOP_ITERS, raster_cfg=cfg,
-                               scene_extent=extent, seed=0, log_every=1, eval_every=1,
-                               on_eval=on_eval, base_raster_cfg=cfg, deescalate_every=12,
-                               max_capacity=LOOP_MAX_CAP, device=dev)
+    # the loop prints its events ([tile_max], [budgets], [grow]) as they happen
+    ts_l, hist_l = L.train(ts_l, data, loop_opt, loop_blce, LOOP_ITERS, raster_cfg=cfg,
+                           scene_extent=extent, seed=0, log_every=1, eval_every=1,
+                           on_eval=on_eval, base_raster_cfg=cfg, deescalate_every=12,
+                           max_capacity=LOOP_MAX_CAP, device=dev)
     torch.cuda.synchronize()
     loop_s = time.time() - t0
     peak_last = torch.cuda.max_memory_allocated(dev)
@@ -1203,7 +1215,15 @@ def main():
               f"slots, max_per_tile {h['max_per_tile']}, tile_max {h['tile_max']}, dropped "
               f"{h['densify_dropped_stat']} + {h['densify_dropped_dyn']}, max opacity "
               f"{observed[it][2]:.4f}")
-    print(f"loop events: {json.dumps(tee.events)}")
+    budgets, grown = [], []
+    for h, h0 in zip(hist_l[1:], hist_l):
+        if (h["max_per_tile"], h["tiles_per_gauss"]) != (h0["max_per_tile"], h0["tiles_per_gauss"]):
+            budgets.append(f"{h0['iter']}: K {h0['max_per_tile']} -> {h['max_per_tile']}, "
+                           f"tiles_per_gauss {h0['tiles_per_gauss']} -> {h['tiles_per_gauss']}")
+        if observed[h["iter"]][:2] != observed[h0["iter"]][:2]:
+            grown.append(f"{h['iter']}: {observed[h0['iter']][:2]} -> {observed[h['iter']][:2]}")
+    print(f"loop events: budgets changed after iterations {json.dumps(budgets)}; "
+          f"pools grew at {json.dumps(grown)}")
     print(f"loop: {rates['loop_it_s']:.3f} it/s over {LOOP_ITERS} iterations ({loop_s:.1f} s; "
           f"B={B_VIEWS} E={E_WARP} {W}x{H}, flow on, extent {extent:.4f}), slots "
           f"{caps0[0]} + {caps0[1]} -> {ts_l.stat.capacity} + {ts_l.dyn.capacity}, on {card}")
@@ -1221,16 +1241,14 @@ def main():
     require(observed[16][2] <= 0.01 + 1e-6, f"opacity reset at 16: max {observed[16][2]}")
     require(loop_instances.get("raster_fwd CE=4", 0) == 4 * B_VIEWS // 2 * 3,
             f"three exposure updates of 4 CE=4 forwards: {loop_instances}")
-    require(any(e.startswith("[grow]") for e in tee.events), "no pool grew")
+    require(grown, "no pool grew")
     require(all(loop_launches[k] > 0 for k in loop_launches), f"loop launches {loop_launches}")
     times["loop_s"] = loop_s
     # one more step at the grown capacity and the last iteration's budgets:
-    # its peak memory alone, and where its device time goes
-    last_cfg = cfg._replace(max_per_tile=hist_l[-1]["max_per_tile"])
-    for ev in tee.events:
-        if ev.startswith("[budgets]"):
-            last_cfg = last_cfg._replace(tiles_per_gauss=int(
-                ev.split("tiles_per_gauss ")[1].split(" -> ")[1].split(",")[0]))
+    # its peak memory alone, the step and an exposure update through the
+    # kernels against the plain route, and where its device time goes
+    last_cfg = cfg._replace(max_per_tile=hist_l[-1]["max_per_tile"],
+                            tiles_per_gauss=hist_l[-1]["tiles_per_gauss"])
     step_l = S.make_train_step(loop_opt, W, H, data.max_time, E_WARP, last_cfg,
                                spatial_lr_scale=extent)
     batch_l = L.make_batch(data, L.BatchSampler(FRAMES, B_VIEWS, seed=5).next_ids(), dev)
@@ -1242,6 +1260,22 @@ def main():
     peak_step = torch.cuda.max_memory_allocated(dev)
     print(f"peak device memory of one step at {ts_l.stat.capacity} + {ts_l.dyn.capacity} slots, "
           f"max_per_tile {last_cfg.max_per_tile}: {peak_step / 2**30:.3f} GiB, on {card}")
+    print(f"the step at {ts_l.stat.capacity} + {ts_l.dyn.capacity} slots, max_per_tile "
+          f"{last_cfg.max_per_tile}, tiles_per_gauss {last_cfg.tiles_per_gauss}, kernels vs plain:")
+    step_vs_plain(loop_opt, ts_l, batch_l, rcfg=last_cfg)
+    expo_vs_plain(ts_l, last_cfg)
+    # every budget the loop could composite at above phase 4's, forward and
+    # backward on the K ladder's view, where phase 14 did not: the budgets it
+    # ran at, the top budget of its capacity validations (the largest tile
+    # occupancy seen, rounded up to a chunk) and the validation's and the
+    # de-escalation's ladders below that top
+    top = max(-(-max(h["tile_max"] for h in hist_l) // 128) * 128,
+              max(h["max_per_tile"] for h in hist_l))
+    loop_ks = {h["max_per_tile"] for h in hist_l} | {top} | {
+        k for k in (384, 512, 768, 1024, 1536, 2048) if k <= top}
+    loop_ks = sorted(k for k in loop_ks if k > cfg.max_per_tile)
+    print(f"the K ladder at the loop's budgets {loop_ks}:")
+    k_ladder([k for k in loop_ks if k not in K_FWD], [k for k in loop_ks if k not in K_BWD])
     _, busy = trace(lambda: step_l(ts_l, batch_l), f"flow-on step at the grown capacity "
                     f"({ts_l.stat.capacity} + {ts_l.dyn.capacity} slots, K={last_cfg.max_per_tile})")
     times["loop_grown_step_device_ms"] = busy / 1e3

@@ -29,7 +29,6 @@ the card draw the same numbers.
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -296,8 +295,7 @@ def control_gaussians(state: G.GaussianState, stats: DensifyStats,
                       scene_extent: float, is_dynamic: bool,
                       mode: int = 2, omega_mask: torch.Tensor | None = None,
                       maxbounds=None, minbounds=None,
-                      total_iterations: int = 10_000,
-                      densify_fn=None, prune_fn=None, reset_fn=None):
+                      total_iterations: int = 10_000):
     """The host-level controller, ``controlgaussians`` (helper_train.py:
     183-289; ``densify.py:300-394``). Mode 2 is what the shipped train path
     hardcodes; modes 1 (N3D, with the ω freeze past iteration 8001) and 3
@@ -309,17 +307,13 @@ def control_gaussians(state: G.GaussianState, stats: DensifyStats,
     caller then runs the step's ω-freeze variant."""
     if mode not in (1, 2, 3):
         raise ValueError(f"unknown densify mode {mode}")
-    densify_fn = densify_fn or functools.partial(
-        densify_clone_split, percent_dense=opt_cfg.percent_dense,
-        scene_extent=scene_extent, split_n=2)
-    prune_fn = prune_fn or prune_by_opacity
-    reset_fn = reset_fn or reset_opacity
     dropped = 0
 
     def _densify(thr):
         nonlocal state, opt_state, stats, dropped
-        state, opt_state, stats, n_drop = densify_fn(
-            state, stats, opt_state, key, grad_threshold=thr)
+        state, opt_state, stats, n_drop = densify_clone_split(
+            state, stats, opt_state, key, grad_threshold=thr,
+            percent_dense=opt_cfg.percent_dense, scene_extent=scene_extent)
         dropped += int(n_drop)
 
     at_interval = (iteration > opt_cfg.densify_from_iter
@@ -334,9 +328,9 @@ def control_gaussians(state: G.GaussianState, stats: DensifyStats,
                     if not is_dynamic:
                         flag += 1
                 else:
-                    state = prune_fn(state, opt_cfg.opthr)
+                    state = prune_by_opacity(state, opt_cfg.opthr)
             if iteration % opt_cfg.opacity_reset_interval == 0:
-                state, opt_state = reset_fn(state, opt_state)
+                state, opt_state = reset_opacity(state, opt_state)
         return state, opt_state, stats, flag, None, dropped
 
     if mode == 1:  # helper_train.py:185-217
@@ -349,9 +343,9 @@ def control_gaussians(state: G.GaussianState, stats: DensifyStats,
                     _densify(opt_cfg.densify_grad_threshold)
                     flag += 1
                 elif iteration < 7000:
-                    state = prune_fn(state, opt_cfg.opthr)
+                    state = prune_by_opacity(state, opt_cfg.opthr)
             if iteration % 3000 == 0:
-                state, opt_state = reset_fn(state, opt_state)
+                state, opt_state = reset_opacity(state, opt_state)
         else:
             if iteration % 1000 == 500:
                 state = prune_z_below(state)
@@ -367,9 +361,9 @@ def control_gaussians(state: G.GaussianState, stats: DensifyStats,
                          * (1.0 if is_dynamic else 1e-2))
                 flag += 1
             elif iteration < 7000:
-                state = prune_fn(state, opt_cfg.opthr)
+                state = prune_by_opacity(state, opt_cfg.opthr)
         if iteration % opt_cfg.opacity_reset_interval == 0:
-            state, opt_state = reset_fn(state, opt_state)
+            state, opt_state = reset_opacity(state, opt_state)
     else:
         if iteration == total_iterations and maxbounds is not None:
             state = remove_min_max(state, maxbounds, minbounds)

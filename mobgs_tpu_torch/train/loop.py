@@ -18,7 +18,6 @@ split at every boundary, so a resumed run needs no replay of it.
 
 from __future__ import annotations
 
-import functools
 import time as _time
 from typing import Callable
 
@@ -159,7 +158,9 @@ def train(ts: TrainState, data: SceneData, opt_cfg, blce_cfg,
     History: one entry per ``log_every`` iterations and at the last, with
     the step's Metrics as floats and ``tile_max``, ``max_per_tile``,
     ``iter``, ``elapsed``, ``n_stat``, ``n_dyn``, ``densify_dropped_stat``
-    and ``densify_dropped_dyn``. A non-finite loss there raises
+    and ``densify_dropped_dyn``, the JAX package's keys; and
+    ``tiles_per_gauss``, which the JAX package's entries lack, so that the
+    budgets a step ran at can be read back. A non-finite loss there raises
     FloatingPointError. ``tile_max`` is read from the device only at those
     iterations and at densify boundaries, as in the JAX loop.
     """
@@ -272,10 +273,6 @@ def train(ts: TrainState, data: SceneData, opt_cfg, blce_cfg,
             return True
         return False
 
-    densify_fn = functools.partial(
-        D.densify_clone_split, percent_dense=opt_cfg.percent_dense,
-        scene_extent=scene_extent, split_n=2)
-
     sampler = BatchSampler(V, opt_cfg.batch_size, seed)
     batcher = DeviceBatcher(data, dev)
     flag_s, flag_d = 0, 0
@@ -355,14 +352,14 @@ def train(ts: TrainState, data: SceneData, opt_cfg, blce_cfg,
                 flag_d, opt_cfg, scene_extent, is_dynamic=True,
                 mode=densify_mode, omega_mask=omega_mask_d,
                 maxbounds=bounds_d[0], minbounds=bounds_d[1],
-                total_iterations=iterations, densify_fn=densify_fn)
+                total_iterations=iterations)
         stat, stat_opt, stat_stats, flag_s, omega_mask_s, ns = \
             D.control_gaussians(
                 ts.stat, ts.stat_stats, ts.stat_opt, (seed, it, STAT_POOL), it,
                 flag_s, opt_cfg, scene_extent, is_dynamic=False,
                 mode=densify_mode, omega_mask=omega_mask_s,
                 maxbounds=bounds_s[0], minbounds=bounds_s[1],
-                total_iterations=iterations, densify_fn=densify_fn)
+                total_iterations=iterations)
         dropped_d += nd
         dropped_s += ns
         # pool growth on densify pressure (the reference grows its tensors
@@ -395,6 +392,7 @@ def train(ts: TrainState, data: SceneData, opt_cfg, blce_cfg,
             m["tile_max"] = int(m.pop("tile_max", 0))
             tile_max_seen = max(tile_max_seen, m["tile_max"])
             m["max_per_tile"] = raster_cfg.max_per_tile
+            m["tiles_per_gauss"] = raster_cfg.tiles_per_gauss
             m.update(iter=it, elapsed=_time.time() - t0,
                      n_stat=int(ts.stat.num_live()),
                      n_dyn=int(ts.dyn.num_live()),

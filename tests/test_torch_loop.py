@@ -536,7 +536,8 @@ def run_both_loops(world):
 def test_loop_history_matches(loop_runs):
     jh, ph = loop_runs["jhist"], loop_runs["phist"]
     assert len(ph) == len(jh) == N_LOOP
-    assert set(ph[0]) == set(jh[0])
+    # the JAX package's keys, and the budget the JAX entries lack
+    assert set(ph[0]) == set(jh[0]) | {"tiles_per_gauss"}
     for a, b in zip(ph, jh):
         assert a["iter"] == b["iter"]
         np.testing.assert_allclose(a["loss"], b["loss"], rtol=1e-5,
@@ -570,6 +571,8 @@ def test_loop_events_and_final_state(loop_runs):
     assert n_stat[7] < n_stat[6]  # the near-transparent seeds pruned at 8
     mpt = [h["max_per_tile"] for h in ph]
     assert mpt[0] == START["max_per_tile"] and mpt[-1] == BASE["max_per_tile"], mpt
+    # the tile span the radii suggest stays under the start's 64
+    assert all(h["tiles_per_gauss"] == START["tiles_per_gauss"] for h in ph)
     assert pts.step == int(jts.step) == N_LOOP
     np.testing.assert_array_equal(pts.stat.live.numpy(), np.asarray(jts.stat.live))
     np.testing.assert_array_equal(pts.dyn.live.numpy(), np.asarray(jts.dyn.live))
