@@ -400,7 +400,9 @@ def composite_tiles_plain(ids: torch.Tensor, counts: torch.Tensor,
       ids: [T, K] int32 Gaussian ids in depth order (garbage past count).
       counts: [T] int32 live entries per tile.
       rec: [N, R] records (mx, my, a, b, c, opacity, subset opacity, pad).
-      col: [N, CE] colour columns.
+        The sums run in its dtype: float32 on every path, float64 for a
+        reference of higher precision.
+      col: [N, CE] colour columns, of ``rec``'s dtype.
       ntx: tiles per image row (pixel origin of tile t).
       sub: also run the subset-opacity chain (record column 6).
       work: when a dict, receives what this input needed: ``slots`` [T],
@@ -415,25 +417,25 @@ def composite_tiles_plain(ids: torch.Tensor, counts: torch.Tensor,
     T, K = ids.shape
     ch = _pick_chunk(K)
     dev = rec.device
-    f32 = torch.float32
+    dt = rec.dtype
     lin = torch.arange(P, device=dev)
     tile = torch.arange(T, device=dev)
-    px = ((lin % TILE).to(f32) + 0.5)[None, None, :] \
-        + ((tile % ntx) * TILE).to(f32)[:, None, None]        # [T, 1, P]
-    py = ((lin // TILE).to(f32) + 0.5)[None, None, :] \
-        + ((tile // ntx) * TILE).to(f32)[:, None, None]
+    px = ((lin % TILE).to(dt) + 0.5)[None, None, :] \
+        + ((tile % ntx) * TILE).to(dt)[:, None, None]        # [T, 1, P]
+    py = ((lin // TILE).to(dt) + 0.5)[None, None, :] \
+        + ((tile // ntx) * TILE).to(dt)[:, None, None]
     counts = counts.to(torch.int64)
 
-    acc = torch.zeros((T, P, col.shape[1]), dtype=f32, device=dev)
-    trans = torch.ones((T, P), dtype=f32, device=dev)
-    acc2 = torch.zeros((T, P), dtype=f32, device=dev) if sub else None
-    trans2 = torch.ones((T, P), dtype=f32, device=dev) if sub else None
+    acc = torch.zeros((T, P, col.shape[1]), dtype=dt, device=dev)
+    trans = torch.ones((T, P), dtype=dt, device=dev)
+    acc2 = torch.zeros((T, P), dtype=dt, device=dev) if sub else None
+    trans2 = torch.ones((T, P), dtype=dt, device=dev) if sub else None
     slots = torch.zeros(T, dtype=torch.int64, device=dev)
     valid = [torch.zeros((), dtype=torch.int64, device=dev) for _ in range(2)]
     used = torch.zeros(rec.shape[0], dtype=torch.bool, device=dev)
     active = torch.ones(T, dtype=torch.bool, device=dev)
     slot = torch.arange(ch, device=dev)
-    zero = torch.zeros((), dtype=f32, device=dev)
+    zero = torch.zeros((), dtype=dt, device=dev)
 
     for j in range(K // ch):
         s0 = j * ch
@@ -508,28 +510,28 @@ def composite_bwd_plain(ids: torch.Tensor, counts: torch.Tensor,
     N, CE = col.shape
     ch = _pick_chunk(K)
     dev = rec.device
-    f32 = torch.float32
+    dt = rec.dtype
     lin = torch.arange(P, device=dev)
     tile = torch.arange(T, device=dev)
-    px = ((lin % TILE).to(f32) + 0.5)[None, None, :] \
-        + ((tile % ntx) * TILE).to(f32)[:, None, None]        # [T, 1, P]
-    py = ((lin // TILE).to(f32) + 0.5)[None, None, :] \
-        + ((tile // ntx) * TILE).to(f32)[:, None, None]
+    px = ((lin % TILE).to(dt) + 0.5)[None, None, :] \
+        + ((tile % ntx) * TILE).to(dt)[:, None, None]        # [T, 1, P]
+    py = ((lin // TILE).to(dt) + 0.5)[None, None, :] \
+        + ((tile // ntx) * TILE).to(dt)[:, None, None]
     counts = counts.to(torch.int64)
 
-    grad_rec = torch.zeros((N, R), dtype=f32, device=dev)
-    grad_col = torch.zeros((N, CE), dtype=f32, device=dev)
+    grad_rec = torch.zeros((N, R), dtype=dt, device=dev)
+    grad_col = torch.zeros((N, CE), dtype=dt, device=dev)
     gdt = torch.sum(g * out, dim=-1)                                 # [T, P]
-    trans = torch.ones((T, P), dtype=f32, device=dev)
-    gacc = torch.zeros((T, P), dtype=f32, device=dev)
+    trans = torch.ones((T, P), dtype=dt, device=dev)
+    gacc = torch.zeros((T, P), dtype=dt, device=dev)
     if sub:
         g2 = g2.reshape(T, P)
         gdt2 = g2 * out2.reshape(T, P)
-        trans2 = torch.ones((T, P), dtype=f32, device=dev)
-        gacc2 = torch.zeros((T, P), dtype=f32, device=dev)
+        trans2 = torch.ones((T, P), dtype=dt, device=dev)
+        gacc2 = torch.zeros((T, P), dtype=dt, device=dev)
     active = torch.ones(T, dtype=torch.bool, device=dev)
     slot = torch.arange(ch, device=dev)
-    zero = torch.zeros((), dtype=f32, device=dev)
+    zero = torch.zeros((), dtype=dt, device=dev)
 
     for j in range(K // ch):
         s0 = j * ch

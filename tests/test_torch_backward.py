@@ -215,6 +215,28 @@ def test_plain_backward_matches_autograd_of_plain_forward(scenes, sub):
     assert torch.equal(wr, got_rec) and torch.equal(wc, got_col)
 
 
+@pytest.mark.parametrize("sub", [False, True], ids=["main", "sub"])
+def test_plain_versions_run_in_the_records_dtype(scenes, sub):
+    """Given float64 records the plain forward and backward sum in float64
+    (the reference for walks deep enough that float32 rounding shows) and
+    agree with their float32 results."""
+    ids, counts, rec, col, ntx = _records(scenes["dense"], 9, sub)
+    rng = np.random.default_rng(4)
+    g = torch.as_tensor(rng.normal(size=(ids.shape[0], cuda_raster.P, col.shape[1])))
+    g2 = torch.as_tensor(rng.normal(size=(ids.shape[0], cuda_raster.P))) if sub else None
+    res = {}
+    for dt in (torch.float32, torch.float64):
+        out, out2 = cuda_raster.composite_tiles_plain(ids, counts, rec.to(dt), col.to(dt),
+                                                      ntx, sub)
+        grads = cuda_raster.composite_bwd_plain(
+            ids, counts, rec.to(dt), col.to(dt), out, out2, g.to(dt),
+            None if g2 is None else g2.to(dt), ntx, sub)
+        res[dt] = [out, *grads] + ([out2] if sub else [])
+        assert all(x.dtype == dt for x in res[dt])
+    for a, b in zip(res[torch.float32], res[torch.float64]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), **GRAD_TOL)
+
+
 # ---------------------------------------------------------------------------
 # gradients of the layers above the compositor
 
