@@ -2,7 +2,7 @@
 """Chip smoke for the PyTorch/CUDA port (``mobgs_tpu_torch``).
 
 Drives the port's serving path, its flow-off and flow-on training steps, its
-exposure re-estimation and its host training loop on one CUDA card at the seesaw protocol's full
+exposure re-estimation, its host training loop and its train CLI on one CUDA card at the seesaw protocol's full
 width (512x288, 24 frames, 20k static + 10k dynamic seeds at x2 capacity =
 40k + 20k slots, tiles_per_gauss=9, max_per_tile=256; training at B=2 views
 and E=9 latent exposures), with a scene made from a seed and random
@@ -93,7 +93,20 @@ Sandwich and BLCE weights:
     loss per iteration within LOSS_RTOL, live counts and capacities equal
     (or the densify decision that flipped and its margin), exposures within
     EXPO_RTOL;
-17. print the ``{"kernels": [...]}`` line (launches: the flow-off training
+17. the train CLI, ``mobgs_tpu_torch.cli.train.main`` as ``python -m
+    mobgs_tpu_torch.cli.train --configs configs/stereo/seesaw.py
+    --synthetic --synthetic_size 512x288x24 --iterations 30
+    --test_iterations 15 --eval_tto`` runs it, into ``build/``: its seconds,
+    the loop's it/s, launches by kernel instance (every kernel launched)
+    and peak memory; every artifact written (history, eval curve, the
+    ``iteration_30`` and ``iteration_best`` checkpoints, the debug grid);
+    a render of view 0 from the PLYs and ``.pt`` read back equal to the
+    final state's within IMG_ATOL; ``blce.pth`` reloaded bit-equal; one
+    eval as the CLI runs it, timed; TTO at 5 steps on two test views through
+    the kernels and the plain route (poses within TTO_POSE_ATOL, PSNR
+    within TTO_PSNR_ATOL); a resume to 36 iterations that splices the
+    history;
+18. print the ``{"kernels": [...]}`` line (launches: the flow-off training
     path's), chip_smoke's wall seconds, then the card line and the
     ``{"ok": true, ...}`` line last.
 
@@ -102,6 +115,8 @@ and prints no result. Run: ``python3 chip_smoke.py``.
 """
 
 import json
+import os
+import shutil
 import socket
 import struct
 import subprocess
@@ -162,6 +177,16 @@ LOOP_ITERS = 30
 LOOP_GRAD_THR = 2e-5
 LOOP_MAX_CAP = 131_072
 N_SMALL_LOOP = 10
+# the train CLI (phase 17): seesaw at full width, an eval every 15 iterations
+# with 5 TTO steps, then a resume for 6 more; TTO through the kernels vs the
+# plain route: poses (scalars ~1, moved by Adam steps of lr 3e-4) and PSNR
+CLI_ITERS, CLI_EVAL_EVERY, CLI_RESUME_ITERS = 30, 15, 36
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CLI_OUT = os.path.join(ROOT, "build", "chip_smoke_cli")
+CLI_CKPT_FILES = ("point_cloud.ply", "point_cloud.pt", "point_cloud_static.ply",
+                  "blce.pth", "deformation.pth", "deformation_table.pth",
+                  "deformation_accum.pth", "train_state.npz")
+TTO_POSE_ATOL, TTO_PSNR_ATOL = 1e-5, 1e-3
 # flow columns are displacements in pixels: their kernel-vs-plain difference
 # is held at IMG_ATOL times their largest magnitude (at least 1 pixel)
 # Published H100 SXM peaks (NVIDIA data sheet, at 700 W): float32 outside
@@ -316,6 +341,144 @@ def protocol_scene(dev):
                          trajectory=torch.as_tensor(d_traj),
                          traj_times=torch.as_tensor(data.time), device=dev)
     return cfg, data, (s_pts, s_cols, d_traj), stat, dyn
+
+
+def cli_phase(dev, card, times, rates):
+    """Phase 17: ``python -m mobgs_tpu_torch.cli.train`` as a user runs it,
+    through its ``main``, at seesaw's full width; then its artifacts, TTO
+    through the kernels against the plain route, and a resume."""
+    from mobgs_tpu_torch.cli import train as cli
+    from mobgs_tpu_torch.data import synthetic
+    from mobgs_tpu_torch.data.cameras import Camera
+    from mobgs_tpu_torch.eval.align import align_test_poses
+    from mobgs_tpu_torch.eval.tto import make_tto
+    from mobgs_tpu_torch.io import ply, torch_ckpt
+    from mobgs_tpu_torch.models import render as R
+    from mobgs_tpu_torch.ops import cuda_raster
+    from mobgs_tpu_torch.ops.rasterize import RasterConfig
+
+    shutil.rmtree(CLI_OUT, ignore_errors=True)
+    argv = ["--configs", os.path.join(ROOT, "configs", "stereo", "seesaw.py"), "--synthetic", "--synthetic_size",
+            f"{W}x{H}x{FRAMES}", "--test_iterations", str(CLI_EVAL_EVERY), "--eval_tto",
+            "--quiet", "-m", CLI_OUT]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cuda_raster.reset_launches()
+    t0 = time.time()
+    ts, hist = cli.main(argv + ["--iterations", str(CLI_ITERS)])
+    torch.cuda.synchronize()
+    cli_s = time.time() - t0
+    launches, instances = dict(cuda_raster.launches), dict(cuda_raster.instance_launches)
+    peak = torch.cuda.max_memory_allocated(dev)
+    times["cli_s"] = cli_s
+    rates["cli_loop_it_s"] = CLI_ITERS / hist[-1]["elapsed"]
+    print(f"train CLI: {cli_s:.2f} s for {CLI_ITERS} iterations ({W}x{H}x{FRAMES}, seesaw: "
+          f"{ts.stat.capacity} + {ts.dyn.capacity} slots, B=2, E=9, flow off, evals with 5 "
+          f"TTO steps at {CLI_EVAL_EVERY} and {CLI_ITERS}), on {card}")
+    print(f"train CLI loop: {rates['cli_loop_it_s']:.3f} it/s over {CLI_ITERS} iterations "
+          f"(the loop's clock: the evals, the debug dump and the best checkpoints inside), "
+          f"on {card}")
+    print(f"train CLI launches by kernel instance: {json.dumps(instances)}, on {card}")
+    print(f"train CLI peak device memory: {peak / 2**30:.3f} GiB "
+          f"(torch.cuda.max_memory_allocated), on {card}")
+    require(all(launches[k] > 0 for k in launches), f"train CLI launches {launches}")
+
+    # the files, as the JAX CLI writes them
+    def load(name):
+        with open(f"{CLI_OUT}/{name}") as f:
+            return json.load(f)
+    hist_file, curve = load("history.json"), load("eval_curve.json")
+    # the CLI logs every 50 iterations and at the last (cli/train.py:412)
+    require([h["iter"] for h in hist_file] == [CLI_ITERS]
+            and all(np.isfinite(h["loss"]) for h in hist_file), f"history.json {hist_file}")
+    require([e["iter"] for e in curve] == [CLI_EVAL_EVERY, CLI_ITERS]
+            and all(np.isfinite(e["test_psnr"]) for e in curve), f"eval_curve.json {curve}")
+    require(load("cfg_args.json")["iterations"] == CLI_ITERS, "cfg_args.json")
+    for tag in (str(CLI_ITERS), "best"):
+        for name in CLI_CKPT_FILES:
+            require(os.path.exists(f"{CLI_OUT}/point_cloud/iteration_{tag}/{name}"),
+                    f"iteration_{tag}/{name}")
+    require(os.path.exists(f"{CLI_OUT}/fine_debug/iter_000001.png"), "fine_debug")
+    print(f"train CLI files: history {json.dumps(hist_file[-1]['loss'])} loss at "
+          f"{CLI_ITERS}; eval curve {json.dumps(curve)}")
+
+    # the PLYs and the decoder read back render as the final state does
+    ck = f"{CLI_OUT}/point_cloud/iteration_{CLI_ITERS}"
+    data, _ = synthetic.generate(width=W, height=H, num_frames=FRAMES, device=dev)
+    rcfg = RasterConfig(tiles_per_gauss=hist[-1]["tiles_per_gauss"],
+                        max_per_tile=hist[-1]["max_per_tile"])
+    cam0 = Camera(w2c=torch.as_tensor(data.w2c[0], device=dev),
+                  K=torch.as_tensor(data.K[0], device=dev),
+                  time=torch.tensor(float(data.time[0]), device=dev))
+    bg = torch.zeros(3, device=dev)
+    dyn_r = ply.load_gaussians(f"{ck}/point_cloud.ply", device=dev)
+    stat_r = ply.load_gaussians(f"{ck}/point_cloud_static.ply", device=dev)
+    sw_r = ply.load_sandwich_pt(f"{ck}/point_cloud.pt", device=dev)
+    require((int(stat_r.num_live()), int(dyn_r.num_live()))
+            == (int(ts.stat.num_live()), int(ts.dyn.num_live())), "PLY live counts")
+    with torch.no_grad():
+        img_a = R.render_view(ts.stat, ts.dyn, ts.sandwich, cam0, W, H, bg,
+                              data.max_time, config=rcfg).image
+        img_b = R.render_view(stat_r, dyn_r, sw_r, cam0, W, H, bg, data.max_time,
+                              config=rcfg).image
+    ply_err = float((img_a - img_b).abs().max())
+    require(ply_err <= IMG_ATOL, f"the PLY round trip's render differs by {ply_err}")
+    blce_r = torch_ckpt.load_blce_pth(f"{ck}/blce.pth", device=dev)
+    require(all(torch.equal(a, b) for a, b in zip(blce_r.params.leaves(),
+                                                   ts.blce.params.leaves()))
+            and torch.equal(blce_r.exposure_expo, ts.blce.exposure_expo), "blce.pth reload")
+    print(f"PLY round trip: render of view 0 from the PLYs within {ply_err:.3g} of the final "
+          f"state's; blce.pth reloads bit-equal")
+
+    # one eval as the CLI runs it: align, then 5 TTO steps on every test view
+    # at the aligned and at the raw poses (at the loop's last budgets)
+    def on(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=dev)
+    test = [on(x) for x in (data.test_w2c, data.K, data.time, data.test_images)]
+    ones = torch.ones(FRAMES, device=dev)
+
+    def one_eval():
+        aligned = align_test_poses(ts.blce, on(data.w2c), test[0], on(data.blur_feats))
+        tto = make_tto(ts.stat, ts.dyn, ts.sandwich, W, H, data.max_time, steps=5,
+                       raster_cfg=rcfg)
+        return tto(aligned, *test[1:], ones).psnr, tto(*test, ones).psnr
+    one_eval()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    one_eval()
+    torch.cuda.synchronize()
+    times["cli_eval_ms"] = 1e3 * (time.time() - t0)
+    print(f"one eval (align + 5 TTO steps on {FRAMES} test views, aligned and raw): "
+          f"{times['cli_eval_ms']:.1f} ms, on {card}")
+
+    # TTO through the kernels and through the plain route
+    res = {}
+    for backend in ("cuda", "plain"):
+        tto = make_tto(ts.stat, ts.dyn, ts.sandwich, W, H, data.max_time, steps=5,
+                       raster_cfg=rcfg._replace(backend=backend))
+        res[backend] = tto(*(x[:2] for x in test), ones[:2])
+    k, p = res["cuda"], res["plain"]
+    pose_err = float((k.w2c - p.w2c).abs().max())
+    psnr_err = float((k.psnr - p.psnr).abs().max())
+    print(f"TTO (5 steps, 2 test views) kernels vs plain: pose {pose_err:.3g}, PSNR "
+          f"{psnr_err:.3g} dB; PSNR {k.psnr.tolist()}")
+    require(pose_err <= TTO_POSE_ATOL, f"TTO poses {pose_err}")
+    require(psnr_err <= TTO_PSNR_ATOL, f"TTO PSNR {psnr_err}")
+    require(float((k.w2c - test[0][:2]).abs().max()) > 0.0, "TTO moved no pose")
+    del ts
+
+    # a resume from the final checkpoint splices the history
+    t0 = time.time()
+    _, hist_r = cli.main(argv + ["--iterations", str(CLI_RESUME_ITERS), "--start_checkpoint",
+                                 f"{ck}/train_state.npz"])
+    times["cli_resume_s"] = time.time() - t0
+    spliced = load("history.json")
+    require([h["iter"] for h in spliced] == [CLI_ITERS, CLI_RESUME_ITERS]
+            and spliced[0] == hist_file[0] and np.isfinite(spliced[-1]["loss"]),
+            f"resumed history {[h['iter'] for h in spliced]}")
+    print(f"resume from iteration {CLI_ITERS} to {CLI_RESUME_ITERS}: "
+          f"{times['cli_resume_s']:.2f} s; history.json iterations "
+          f"{[h['iter'] for h in spliced]}, the first entry the first run's")
 
 
 def main():
@@ -1432,11 +1595,14 @@ def main():
                             torch.full_like(ts_k.blce.exposure_expo, 0.4)),
             "the reduced loop updated no exposure")
     times["loop_vs_plain_s"] = time.time() - t0
+
+    phase("17 train CLI")
+    cli_phase(dev, card, times, rates)
     times["total_s"] = time.time() - t_start
     print(f"times: {json.dumps({k: round(v, 2) for k, v in times.items()})}")
     print(f"rates: {json.dumps(rates)}")
 
-    phase("17 result")
+    phase("18 result")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

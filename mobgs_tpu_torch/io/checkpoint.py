@@ -5,10 +5,11 @@ A flat, compressed npz whose keys are the JAX package's pytree paths of its
 ``TrainState`` (``stat/xyz``, ``stat_opt/mu/xyz``, ``blce/params/rot_w``,
 ``stat_stats/denom``, ``step``, ...) and whose arrays have its dtypes
 (``step`` and ``*_opt/step`` int32 scalars, ``live`` bool, ``control_num``
-int32). So a checkpoint written here loads into the JAX package, whose
-loader keeps template values for leaves a file lacks (its carried
-deformation net, ``deform/*``), and a JAX checkpoint loads here, where the
-``deform/*`` leaves have no field and are skipped.
+int32). The carried deformation net, when the state has one, is written
+under the same paths (``deform/grid/grids/<scale>/<plane>``,
+``deform/feature_out/ws/<i>``, ...). So a checkpoint written here loads
+into the JAX package and a JAX checkpoint loads here; either loader keeps
+the template's values for leaves a file lacks.
 """
 
 from __future__ import annotations
@@ -36,6 +37,19 @@ def _np(x) -> np.ndarray:
     return np.asarray(x)
 
 
+def _flatten_tree(prefix: str, node, out: dict) -> None:
+    """NamedTuples by field name and tuples by index, as JAX's pytree
+    paths name them."""
+    if hasattr(node, "_fields"):
+        for f in node._fields:
+            _flatten_tree(f"{prefix}/{f}", getattr(node, f), out)
+    elif isinstance(node, (tuple, list)):
+        for i, x in enumerate(node):
+            _flatten_tree(f"{prefix}/{i}", x, out)
+    else:
+        out[prefix] = _np(node)
+
+
 def flatten_train_state(ts: TrainState) -> dict[str, np.ndarray]:
     """{JAX pytree path: numpy array} for every leaf of the state, in the
     JAX ``TrainState``'s leaf order."""
@@ -58,6 +72,8 @@ def flatten_train_state(ts: TrainState) -> dict[str, np.ndarray]:
         for f, x in zip(DensifyStats._fields, getattr(ts, pool)):
             out[f"{pool}/{f}"] = _np(x)
     out["step"] = np.asarray(ts.step, np.int32)
+    if ts.deform is not None:
+        _flatten_tree("deform", ts.deform, out)
     return out
 
 
@@ -93,9 +109,9 @@ def load_train_state(path: str, template: TrainState) -> TrainState:
     """Load into the structure of ``template`` (same shapes required; grow
     the template first with ``densify.grow_train_state`` and
     :func:`peek_shape` when the checkpoint's pools are larger). Leaves the
-    file lacks keep the template's values; leaves the port has no field for
-    (``deform/*``) are skipped. Returns a new TrainState on the template's
-    device."""
+    file lacks keep the template's values; leaves the template lacks (a
+    ``deform/*`` net where the template carries none) are skipped. Returns
+    a new TrainState on the template's device."""
     flat = flatten_train_state(template)
     missing = []
     with np.load(path) as data:

@@ -13,6 +13,8 @@ import torch
 
 from mobgs_tpu_torch import resolve_device
 from mobgs_tpu_torch.models.blce import BLCE_FIELDS, BLCEParams, BLCEState
+from mobgs_tpu_torch.models.deformation import DeformationParams, MLPParams
+from mobgs_tpu_torch.models.hexplane import HexPlaneParams
 from mobgs_tpu_torch.models.gaussians import DIFF_FIELDS, GaussianState
 from mobgs_tpu_torch.models.sandwich import SandwichParams
 from mobgs_tpu_torch.train.densify import DensifyStats
@@ -53,11 +55,39 @@ def adam_from_numpy(fields: dict, names, device=None) -> AdamState:
                      step=int(np.asarray(fields["step"])))
 
 
+def _items(node) -> list:
+    """A tuple node: a sequence, or a dict keyed "0", "1", ... (the
+    pytree path's index)."""
+    if isinstance(node, dict):
+        return [node[str(i)] for i in range(len(node))]
+    return list(node)
+
+
+def deformation_from_numpy(fields: dict, device=None) -> DeformationParams:
+    """``{"grid": {"grids": [[plane] * 6] * scales, "aabb": [2, 3]},
+    "feature_out": {"ws": [...], "bs": [...]}, ...}`` (tuples as sequences
+    or as dicts keyed by index) → DeformationParams on ``device``."""
+    dev = resolve_device(device)
+
+    def on(x):
+        return torch.as_tensor(np.array(x), device=dev)
+
+    def mlp(node):
+        return MLPParams(ws=tuple(on(w) for w in _items(node["ws"])),
+                         bs=tuple(on(b) for b in _items(node["bs"])))
+
+    grid = HexPlaneParams(
+        grids=tuple(tuple(on(p) for p in _items(scale))
+                    for scale in _items(fields["grid"]["grids"])),
+        aabb=on(fields["grid"]["aabb"]))
+    return DeformationParams(grid=grid, **{
+        f: mlp(fields[f]) for f in DeformationParams._fields if f != "grid"})
+
+
 def train_state_from_numpy(fields: dict, device=None) -> TrainState:
     """A JAX ``TrainState`` as a nested dict of numpy arrays (one dict per
-    NamedTuple, keyed by its fields) → the port's TrainState, moments and
-    step counter included. The JAX state's ``deform`` net is not carried:
-    the fine stage never renders through it."""
+    NamedTuple, keyed by its fields) → the port's TrainState, moments,
+    step counter and the carried ``deform`` net (when present) included."""
     stats = {k: DensifyStats(**_tensors(fields[k], DensifyStats._fields, device))
              for k in ("stat_stats", "dyn_stats")}
     return TrainState(
@@ -70,4 +100,6 @@ def train_state_from_numpy(fields: dict, device=None) -> TrainState:
         sandwich_opt=adam_from_numpy(fields["sandwich_opt"],
                                      SandwichParams._fields, device),
         blce_opt=adam_from_numpy(fields["blce_opt"], BLCE_FIELDS, device),
-        step=int(np.asarray(fields["step"])), **stats)
+        step=int(np.asarray(fields["step"])),
+        deform=(deformation_from_numpy(fields["deform"], device)
+                if fields.get("deform") is not None else None), **stats)

@@ -64,6 +64,10 @@ class TrainState(NamedTuple):
     stat_stats: densify.DensifyStats
     dyn_stats: densify.DensifyStats
     step: int  # iterations taken
+    # the carried deformation net (models/deformation.py), which the fine
+    # stage never renders through or updates: the step and the loop pass it
+    # through untouched, the checkpoints write it (``step.py:51-56``)
+    deform: object | None = None
 
 
 class Batch(NamedTuple):
@@ -93,8 +97,9 @@ def sandwich_leaves(sw: SandwichParams) -> tuple[torch.Tensor, ...]:
 
 def init_train_state(stat: G.GaussianState, dyn: G.GaussianState,
                      sandwich: SandwichParams,
-                     blce_state: B.BLCEState) -> TrainState:
-    """Zero Adam moments and densify statistics, on the state's device."""
+                     blce_state: B.BLCEState, deform=None) -> TrainState:
+    """Zero Adam moments and densify statistics, on the state's device;
+    ``deform`` (a ``DeformationParams`` or None) is carried as given."""
     dev = stat.xyz.device
     return TrainState(
         stat=stat, dyn=dyn, sandwich=sandwich, blce=blce_state,
@@ -104,7 +109,7 @@ def init_train_state(stat: G.GaussianState, dyn: G.GaussianState,
         blce_opt=init_adam(blce_state.params.leaves()),
         stat_stats=densify.init_stats(stat.capacity, dev),
         dyn_stats=densify.init_stats(dyn.capacity, dev),
-        step=0)
+        step=0, deform=deform)
 
 
 def make_forward(opt_cfg, width: int, height: int, max_time: float,

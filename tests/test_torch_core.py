@@ -235,3 +235,38 @@ def test_entry_point_without_device_needs_a_card():
             G.create_state(pts, cols, np.zeros(8, np.float32), 8)
         with pytest.raises(RuntimeError, match="cuda"):
             sandwich.init_sandwich()
+
+
+def _rotations(rng, n):
+    """Random rotations, and ones whose trace is negative with each of the
+    three diagonal terms the largest (every branch of rotmat_to_quat)."""
+    q = rng.normal(size=(n, 4)).astype(np.float32)
+    R = np.asarray(jse3.quat_to_rotmat(jnp.asarray(q)))
+    flips = [np.diag(d).astype(np.float32) for d in ((1, -1, -1), (-1, 1, -1), (-1, -1, 1))]
+    return np.concatenate([R, np.stack(flips), np.stack([f @ R[0] for f in flips])])
+
+
+def test_se3_camera_math_matches():
+    """rotmat_to_quat, quat_multiply, world_to_view, projection_matrix,
+    fov2focal and focal2fov (``se3.py:54-92,137-180``): rtol 1e-6."""
+    rng = np.random.default_rng(7)
+    tol = dict(rtol=1e-6, atol=1e-7)
+    R = _rotations(rng, 32)
+    np.testing.assert_allclose(se3.rotmat_to_quat(t(R)).numpy(),
+                               np.asarray(jse3.rotmat_to_quat(jnp.asarray(R))), **tol)
+    a, b = (rng.normal(size=(16, 4)).astype(np.float32) for _ in range(2))
+    np.testing.assert_allclose(se3.quat_multiply(t(a), t(b)).numpy(),
+                               np.asarray(jse3.quat_multiply(jnp.asarray(a), jnp.asarray(b))),
+                               **tol)
+    tv = rng.normal(size=3).astype(np.float32)
+    np.testing.assert_allclose(se3.world_to_view(t(R[0]), t(tv)).numpy(),
+                               np.asarray(jse3.world_to_view(R[0], tv)), **tol)
+    np.testing.assert_allclose(se3.projection_matrix(0.01, 100.0, 0.9, 0.6).numpy(),
+                               np.asarray(jse3.projection_matrix(0.01, 100.0, 0.9, 0.6)),
+                               **tol)
+    fov = rng.uniform(0.3, 1.5, size=8).astype(np.float32)
+    np.testing.assert_allclose(se3.fov2focal(t(fov), 512).numpy(),
+                               np.asarray(jse3.fov2focal(jnp.asarray(fov), 512)), **tol)
+    np.testing.assert_allclose(se3.focal2fov(t(fov * 400), 288).numpy(),
+                               np.asarray(jse3.focal2fov(jnp.asarray(fov * 400), 288)), **tol)
+    assert abs(se3.focal2fov(se3.fov2focal(0.7, 512), 512) - 0.7) < 1e-12

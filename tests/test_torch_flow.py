@@ -75,6 +75,18 @@ STEP_TOL = {"stat": 2e-3, "dyn": 2e-3, "sandwich": 1e-4, "blce": 1e-3,
 LAMBDA_FLOW = 1e-2
 
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's side runs on one CPU thread: its many small ops gain
+    little from more, and beside the suite's other workers a team of
+    threads waits on its slowest member at every op."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def t(x):
     return torch.as_tensor(np.array(x))
 
