@@ -2,7 +2,8 @@
 """Chip smoke for the PyTorch/CUDA port (``mobgs_tpu_torch``).
 
 Drives the port's serving path, its flow-off and flow-on training steps, its
-exposure re-estimation, its host training loop and its train CLI on one CUDA card at the seesaw protocol's full
+exposure re-estimation, its host training loop, its train CLI and a user's
+whole run on a stereo scene (train, eval and metrics CLIs) on one CUDA card at the seesaw protocol's full
 width (512x288, 24 frames, 20k static + 10k dynamic seeds at x2 capacity =
 40k + 20k slots, tiles_per_gauss=9, max_per_tile=256; training at B=2 views
 and E=9 latent exposures), with a scene made from a seed and random
@@ -106,7 +107,23 @@ Sandwich and BLCE weights:
     the kernels and the plain route (poses within TTO_POSE_ATOL, PSNR
     within TTO_PSNR_ATOL); a resume to 36 iterations that splices the
     history;
-18. print the ``{"kernels": [...]}`` line (launches: the flow-off training
+18. a user's whole run on a DyBluRF stereo scene (``train.sh`` and
+    ``eval.sh``): a stereo-format scene directory written from the
+    generator at 512x288x24 into ``build/`` (LLFF poses, ``scene.json``,
+    blurry and sharp frames, depths, motion masks, 2,048 TAPIR-format
+    tracks a query frame), its loaded cameras held to the generator's; the
+    train CLI with ``-s`` and ``configs/stereo/seesaw.py`` for STEREO_ITERS
+    iterations (the loader, the warm stage on the card with the seesaw seed
+    counts, an eval and the checkpoints); the eval CLI on ``iteration_best``
+    with STEREO_TTO_STEPS TTO steps (24 refined PNGs, ``solved_poses.npy``,
+    finite ATE / RPE); TTO at 5 steps on two test views through the kernels
+    and the plain route; the metrics CLI (``results.json``: PSNR, SSIM,
+    ``lpips_randfeat``, tOF or null without ``cv2``); LPIPS and SSIM of the
+    same images on the card and on the CPU within STEREO_METRIC_ATOL; the
+    seconds of the loader, the warm stage, the training, the eval CLI and
+    the metrics CLI, the ms of one TTO view, the launches by instance and
+    the peak memory;
+19. print the ``{"kernels": [...]}`` line (launches: the flow-off training
     path's), chip_smoke's wall seconds, then the card line and the
     ``{"ok": true, ...}`` line last.
 
@@ -187,6 +204,14 @@ CLI_CKPT_FILES = ("point_cloud.ply", "point_cloud.pt", "point_cloud_static.ply",
                   "blce.pth", "deformation.pth", "deformation_table.pth",
                   "deformation_accum.pth", "train_state.npz")
 TTO_POSE_ATOL, TTO_PSNR_ATOL = 1e-5, 1e-3
+# the stereo run (phase 18): a stereo-format scene written from the
+# generator, seesaw at full width for STEREO_ITERS iterations (cut from
+# 10,000), the eval CLI at STEREO_TTO_STEPS TTO steps (cut from 100);
+# LPIPS and SSIM on the card vs the CPU, both in float32
+STEREO_ROOT = os.path.join(ROOT, "build", "chip_smoke_stereo")
+STEREO_TRACKS = 2048
+STEREO_ITERS, STEREO_TTO_STEPS = 10, 10
+STEREO_METRIC_ATOL = 1e-5
 # flow columns are displacements in pixels: their kernel-vs-plain difference
 # is held at IMG_ATOL times their largest magnitude (at least 1 pixel)
 # Published H100 SXM peaks (NVIDIA data sheet, at 700 W): float32 outside
@@ -479,6 +504,261 @@ def cli_phase(dev, card, times, rates):
     print(f"resume from iteration {CLI_ITERS} to {CLI_RESUME_ITERS}: "
           f"{times['cli_resume_s']:.2f} s; history.json iterations "
           f"{[h['iter'] for h in spliced]}, the first entry the first run's")
+
+
+
+def write_stereo_scene(root, data, traj, seed=0):
+    """A DyBluRF-stereo scene directory (``data/stereo.py``'s layout) from the
+    generator's scene: ``poses_bounds.npy`` (the inverse of the loader's
+    ``_llff_to_c2w``: even rows the blurry train cameras, odd rows the sharp
+    test cameras, hwf focal = fx * 720/288), ``scene.json`` (centre 0),
+    the blurry frames, the sharp test frames, the depths, the motion masks,
+    and ``bootstapir/`` tracks: per query frame STEREO_TRACKS points on the
+    dynamic trajectories (a rigid offset of a ground-truth Gaussian each),
+    projected into every frame, visible and confident where in front of the
+    camera and inside the image."""
+    from PIL import Image
+    rng = np.random.default_rng(seed)
+    V = data.w2c.shape[0]
+    for d in ("images_512x288", "inference_images", "align_uni_depth_noclip",
+              "motion_masks_manual", "bootstapir"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    fx = float(data.K[0, 0, 0])
+    rows = []
+    for w2c in np.stack([data.w2c, data.test_w2c], 1).reshape(2 * V, 4, 4):
+        m = np.linalg.inv(w2c.astype(np.float64)) @ np.diag([1.0, -1.0, -1.0, 1.0])
+        llff = np.stack([-m[:3, 1], m[:3, 0], m[:3, 2], m[:3, 3],
+                         np.array([720.0, 1280.0, fx * 720 / 288])], -1)
+        rows.append(np.concatenate([llff.reshape(15), [0.1, 100.0]]))
+    np.save(os.path.join(root, "poses_bounds.npy"), np.stack(rows))
+    with open(os.path.join(root, "scene.json"), "w") as f:
+        json.dump({"center": [0.0, 0.0, 0.0]}, f)
+
+    def png(img, *path):
+        Image.fromarray((np.clip(img, 0, 1) * 255).round().astype(np.uint8)).save(
+            os.path.join(root, *path))
+
+    for i in range(V):
+        png(data.images[i], "images_512x288", f"{i:05d}.png")
+        png(data.test_images[i], "inference_images", f"{i:05d}.png")
+        png(data.masks[i], "motion_masks_manual", f"{i:05d}.png")
+        np.save(os.path.join(root, "align_uni_depth_noclip", f"{i:05d}.npy"),
+                data.depths[i].astype(np.float32))
+    K = data.K[0]
+    for q in range(V):
+        pick = rng.integers(0, traj.shape[0], STEREO_TRACKS)
+        pts = traj[pick] + rng.normal(0, 0.05, (STEREO_TRACKS, 1, 3)).astype(np.float32)
+        for t in range(V):
+            cam = pts[:, t] @ data.w2c[t][:3, :3].T + data.w2c[t][:3, 3]
+            z = np.maximum(cam[:, 2], 1e-6)
+            u = K[0, 0] * cam[:, 0] / z + K[0, 2] - 0.5  # pixel-centre coordinates
+            v = K[1, 1] * cam[:, 1] / z + K[1, 2] - 0.5
+            seen = (cam[:, 2] > 0) & (u >= 0) & (u <= W - 1) & (v >= 0) & (v <= H - 1)
+            occlusion = np.where(seen, -10.0, 10.0)
+            tracks = np.stack([u, v, occlusion, np.full_like(u, -10.0)], -1)
+            np.save(os.path.join(root, "bootstapir", f"{q:05d}_{t:05d}.npy"),
+                    tracks.astype(np.float32))
+
+
+def stereo_phase(dev, card, times):
+    """Phase 18: a user's whole run on a DyBluRF stereo scene, ``train.sh``
+    and ``eval.sh`` through the port's entry points: the train CLI with
+    ``-s`` (loader, warm stage, training), the eval CLI (alignment, TTO,
+    refined renders, poses) and the metrics CLI; TTO through the kernels
+    against the plain route; LPIPS and SSIM on the card against the CPU."""
+    from mobgs_tpu_torch.cli import eval_cli, metrics_cli
+    from mobgs_tpu_torch.cli import train as cli
+    from mobgs_tpu_torch.config import load_scene_config
+    from mobgs_tpu_torch.core.image import ssim
+    from mobgs_tpu_torch.data import stereo, synthetic
+    from mobgs_tpu_torch.eval import lpips, pose_metrics, tto
+    from mobgs_tpu_torch.io import ply
+    from mobgs_tpu_torch.ops import cuda_raster
+    from mobgs_tpu_torch.ops.rasterize import RasterConfig
+    from mobgs_tpu_torch.train import warm
+    from PIL import Image
+
+    seesaw = os.path.join(ROOT, "configs", "stereo", "seesaw.py")
+    shutil.rmtree(STEREO_ROOT, ignore_errors=True)
+    scene, out = os.path.join(STEREO_ROOT, "scene"), os.path.join(STEREO_ROOT, "out")
+    t0 = time.time()
+    data, traj = synthetic.generate(width=W, height=H, num_frames=FRAMES, device=dev)
+    write_stereo_scene(scene, data, traj)
+    times["stereo_write_s"] = time.time() - t0
+
+    # the loader's scene is the generator's, translations over the mean depth
+    loaded = stereo.load_stereo_scene(scene).data
+    mean_depth = float(np.mean(data.depths))
+    for split in ("w2c", "test_w2c"):
+        a, b = getattr(loaded, split), getattr(data, split)
+        rot = float(np.abs(a[:, :3, :3] - b[:, :3, :3]).max())
+        trans = float(np.abs(a[:, :3, 3] * mean_depth - b[:, :3, 3]).max())
+        require(rot <= 1e-5 and trans <= 1e-4, f"stereo {split}: rotations {rot}, "
+                f"translations x mean depth {trans}")
+    focal = abs(float(loaded.K[0, 0, 0]) / float(data.K[0, 0, 0]) - 1)
+    require(focal <= 1e-5 and loaded.images.shape == (FRAMES, H, W, 3), f"stereo focal {focal}")
+    print(f"stereo scene: {FRAMES} frames at {W}x{H}, {STEREO_TRACKS} tracks a query, mean "
+          f"depth {mean_depth:.4f}; loaded cameras = the generator's (rotations within "
+          f"{rot:.3g}, translations x mean depth {trans:.3g}, focal {focal:.3g}); written in "
+          f"{times['stereo_write_s']:.2f} s")
+
+    # train.sh: the loader and the warm stage timed inside the CLI
+    seen = {}
+
+    def timed(mod, name):
+        real = getattr(mod, name)
+
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.time()
+            res = real(*a, **kw)
+            torch.cuda.synchronize()
+            seen[name] = (time.time() - t, res)
+            return res
+        return real, wrapper
+
+    patched = [(stereo, "load_stereo_scene"), (warm, "warm_init")]
+    reals = []
+    for mod, name in patched:
+        real, wrapper = timed(mod, name)
+        reals.append(real)
+        setattr(mod, name, wrapper)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cuda_raster.reset_launches()
+    t0 = time.time()
+    try:
+        ts, hist = cli.main(["-s", scene, "--configs", seesaw, "--iterations", str(STEREO_ITERS), "--test_iterations",
+                             str(STEREO_ITERS), "--quiet", "-m", out])
+        torch.cuda.synchronize()
+    finally:
+        for (mod, name), real in zip(patched, reals):
+            setattr(mod, name, real)
+    times["stereo_train_s"] = time.time() - t0
+    train_launches = dict(cuda_raster.instance_launches)
+    kernel_launches = dict(cuda_raster.launches)
+    pc = seen["warm_init"][1]
+    times["stereo_load_s"], times["stereo_warm_s"] = seen["load_stereo_scene"][0], \
+        seen["warm_init"][0]
+    opt = load_scene_config(seesaw).opt
+    require(len(pc.stat_points) == opt.stat_npts and len(pc.dyn_points) == opt.dyn_npts
+            and pc.dyn_trajectory.shape == (opt.dyn_npts, FRAMES, 3)
+            and np.isfinite(pc.dyn_trajectory).all(), "warm-stage clouds")
+    require([h["iter"] for h in hist] == [STEREO_ITERS] and np.isfinite(hist[-1]["loss"]),
+            f"stereo history {hist}")
+    print(f"stereo train CLI: {times['stereo_train_s']:.2f} s for {STEREO_ITERS} iterations "
+          f"(seesaw: B=2, E=9, flow off, {ts.stat.capacity} + {ts.dyn.capacity} slots, an eval "
+          f"at {STEREO_ITERS}); loader {times['stereo_load_s']:.2f} s, warm init "
+          f"{times['stereo_warm_s']:.2f} s ({len(pc.stat_points)} static + "
+          f"{len(pc.dyn_points)} dynamic seeds), loss {hist[-1]['loss']:.5f}, budgets "
+          f"tiles_per_gauss {hist[-1]['tiles_per_gauss']} max_per_tile "
+          f"{hist[-1]['max_per_tile']}, on {card}")
+    del ts
+
+    # eval.sh: the eval CLI, its TTO timed
+    tto_time = {}
+    real_make_tto = tto.make_tto
+
+    def timed_make_tto(*a, **kw):
+        fn = real_make_tto(*a, **kw)
+
+        def run(*b):
+            torch.cuda.synchronize()
+            t = time.time()
+            res = fn(*b)
+            torch.cuda.synchronize()
+            tto_time["s"] = time.time() - t
+            return res
+        return run
+
+    cuda_raster.reset_launches()
+    tto.make_tto = timed_make_tto
+    t0 = time.time()
+    try:
+        res = eval_cli.main(["-s", scene, "-m", out, "--iteration", "best", "--tto_steps",
+                             str(STEREO_TTO_STEPS), "--tto_decay_start",
+                             str(STEREO_TTO_STEPS // 2)])
+        torch.cuda.synchronize()
+    finally:
+        tto.make_tto = real_make_tto
+    times["stereo_eval_s"] = time.time() - t0
+    eval_launches = dict(cuda_raster.instance_launches)
+    refined = sorted(os.listdir(os.path.join(out, "test_refined")))
+    solved = np.load(os.path.join(out, "solved_poses.npy"))
+    require(len(refined) == FRAMES and all(n.endswith(".png.png") for n in refined),
+            f"test_refined {refined}")
+    require(solved.shape == (FRAMES, 4, 4) and np.isfinite(solved).all(), "solved_poses.npy")
+    poses = pose_metrics.evaluate_poses(np.linalg.inv(loaded.test_w2c), np.linalg.inv(solved))
+    require(all(np.isfinite(v) for v in poses.values()), f"pose metrics {poses}")
+    tto_view_ms = 1e3 * tto_time["s"] / FRAMES
+    print(f"stereo eval CLI: {times['stereo_eval_s']:.2f} s ({STEREO_TTO_STEPS} TTO steps on "
+          f"{FRAMES} test views; one TTO view {tto_view_ms:.1f} ms); mean PSNR "
+          f"{float(res.psnr.mean()):.4f}; poses {json.dumps(poses)}, on {card}")
+
+    # TTO through the kernels and through the plain route, on the checkpoint
+    ck = os.path.join(out, "point_cloud", "iteration_best")
+    dyn_r = ply.load_gaussians(f"{ck}/point_cloud.ply", device=dev)
+    stat_r = ply.load_gaussians(f"{ck}/point_cloud_static.ply", device=dev)
+    sw_r = ply.load_sandwich_pt(f"{ck}/point_cloud.pt", device=dev)
+    test = [torch.as_tensor(x[:2], dtype=torch.float32, device=dev)
+            for x in (loaded.test_w2c, loaded.K, loaded.time, loaded.test_images)]
+    runs = {}
+    for backend in ("cuda", "plain"):
+        runs[backend] = tto.make_tto(stat_r, dyn_r, sw_r, W, H, loaded.max_time, steps=5,
+                                     raster_cfg=RasterConfig(backend=backend))(
+            *test, torch.ones(2, device=dev))
+    k, p = runs["cuda"], runs["plain"]
+    pose_err = float((k.w2c - p.w2c).abs().max())
+    psnr_err = float((k.psnr - p.psnr).abs().max())
+    print(f"stereo TTO (5 steps, 2 test views) kernels vs plain: pose {pose_err:.3g}, PSNR "
+          f"{psnr_err:.3g} dB; PSNR {k.psnr.tolist()}")
+    require(pose_err <= TTO_POSE_ATOL and psnr_err <= TTO_PSNR_ATOL,
+            f"stereo TTO kernels vs plain: pose {pose_err}, PSNR {psnr_err}")
+    require(float((k.w2c - test[0]).abs().max()) > 0.0, "stereo TTO moved no pose")
+
+    # eval.sh's metrics CLI
+    t0 = time.time()
+    metrics_cli.main(["-s", scene, "-m", out])
+    torch.cuda.synchronize()
+    times["stereo_metrics_s"] = time.time() - t0
+    with open(os.path.join(out, "results.json")) as f:
+        report = json.load(f)
+    require(report["n_frames"] == FRAMES and all(
+        np.isfinite(report[k]) for k in ("psnr", "ssim", "lpips_randfeat")), f"results {report}")
+    require(report.get("tof") is None or np.isfinite(report["tof"]), f"tOF {report.get('tof')}")
+    print(f"stereo metrics CLI: {times['stereo_metrics_s']:.2f} s; results.json "
+          f"{json.dumps({k: v for k, v in report.items() if k != 'per_frame_psnr'})} (tOF "
+          f"{'from OpenCV' if report.get('tof') is not None else 'null: cv2 does not import'}),"
+          f" on {card}")
+
+    # LPIPS and SSIM of the same images, on the card and on the CPU
+    preds = np.stack([np.asarray(Image.open(os.path.join(out, "test_refined", n)))[..., :3]
+                      for n in refined]).astype(np.float32) / 255
+    gts = loaded.test_images
+    errs = {}
+    for name, fn in (
+            ("lpips", lambda d: lpips.lpips_distance(
+                lpips.load_lpips(device=d), *(2 * torch.as_tensor(x, device=d).permute(
+                    0, 3, 1, 2) - 1 for x in (preds, gts)))),
+            ("ssim", lambda d: ssim(*(torch.as_tensor(x, device=d).permute(0, 3, 1, 2)
+                                      for x in (preds, gts)), size_average=False))):
+        card_v, cpu_v = fn(dev).cpu(), fn("cpu")
+        errs[name] = float((card_v - cpu_v).abs().max())
+        require(errs[name] <= STEREO_METRIC_ATOL, f"{name} card vs CPU {errs[name]}")
+    print(f"stereo LPIPS / SSIM card vs CPU ({FRAMES} frames): max abs diff {json.dumps(errs)}")
+
+    peak = torch.cuda.max_memory_allocated(dev)
+    require(all(kernel_launches.get(k, 0) > 0 for k in REPLACES),
+            f"stereo train launches {kernel_launches}")
+    require(eval_launches.get("raster_fwd CE=11", 0) > 0
+            and eval_launches.get("raster_bwd CE=11", 0) > 0, f"eval launches {eval_launches}")
+    print(f"stereo launches by kernel instance: train {json.dumps(train_launches)}; eval CLI "
+          f"{json.dumps(eval_launches)}, on {card}")
+    print(f"stereo seconds: loader {times['stereo_load_s']:.2f}, warm init "
+          f"{times['stereo_warm_s']:.2f}, training (the train CLI) "
+          f"{times['stereo_train_s']:.2f}, eval CLI {times['stereo_eval_s']:.2f}, metrics CLI "
+          f"{times['stereo_metrics_s']:.2f}; peak device memory {peak / 2**30:.3f} GiB "
+          f"(torch.cuda.max_memory_allocated), on {card}")
 
 
 def main():
@@ -1598,11 +1878,14 @@ def main():
 
     phase("17 train CLI")
     cli_phase(dev, card, times, rates)
-    times["total_s"] = time.time() - t_start
-    print(f"times: {json.dumps({k: round(v, 2) for k, v in times.items()})}")
     print(f"rates: {json.dumps(rates)}")
 
-    phase("18 result")
+    phase("18 stereo run: train.sh and eval.sh")
+    stereo_phase(dev, card, times)
+    times["total_s"] = time.time() - t_start
+    print(f"times: {json.dumps({k: round(v, 2) for k, v in times.items()})}")
+
+    phase("19 result")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

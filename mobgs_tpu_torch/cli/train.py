@@ -1,6 +1,8 @@
 """Training CLI, the port of ``mobgs_tpu/cli/train.py`` with its flags,
 defaults and behaviour.
 
+  python -m mobgs_tpu_torch.cli.train -s data/stereo/seesaw/dense \\
+      --configs configs/stereo/seesaw.py --expname stereo/seesaw
   python -m mobgs_tpu_torch.cli.train --synthetic --iterations 100
   python -m mobgs_tpu_torch.cli.train --configs configs/stereo/seesaw.py \\
       --synthetic --synthetic_size 512x288x24 --expname seesaw_synth
@@ -16,8 +18,11 @@ dynamic pool and the decoder), ``point_cloud_static.ply``, ``blce.pth``,
 and the debug grids ``fine_debug/iter_*.png``. The JAX package loads every
 one of them.
 
-Where it differs from the JAX CLI: a ``-s`` dataset path needs the data
-loaders, which the port has not yet; the random draws come from
+With ``-s`` it reads a DyBluRF stereo scene (``data/stereo.py``) and seeds
+the clouds with the warm stage (``train/warm.py``) on the same device; the
+other dataset kinds raise until their loaders are ported.
+
+Where it differs from the JAX CLI: the random draws come from
 ``torch.Generator``s seeded with seed, seed+1, seed+2 and seed+3 (the
 JAX CLI's ``PRNGKey``s), so the same seed gives other initial weights;
 and ``blce.pth`` is always written (the JAX CLI's ``blce.npz`` fallback
@@ -115,23 +120,66 @@ def main(argv=None, device=None):
     base_raster_cfg = raster_cfg
 
     # ---- data
-    if not args.synthetic:
-        raise NotImplementedError(
-            f"-s {args.source_path!r}: the dataset loaders (data/stereo.py, "
-            "data/scene.py) and the warm stage are not ported yet (ROADMAP "
-            "A.5); train on --synthetic")
-    W, H, F = map(int, args.synthetic_size.split("x"))
-    data, traj = synthetic.generate(width=W, height=H, num_frames=F, device=dev)
-    # seed counts scaled to the scene's area (the reference's counts assume
-    # 512x288)
-    area_scale = (W * H) / (512 * 288)
-    s_pts, s_cols, d_traj = synthetic.init_point_clouds(
-        data, traj, max(200, int(cfg.opt.stat_npts * area_scale)),
-        max(60, int(cfg.opt.dyn_npts * area_scale)))
-    s_times = np.zeros(len(s_pts), np.float32)
-    d_times = np.zeros(len(d_traj), np.float32)
-    d_cols = np.full((len(d_traj), 3), 0.5, np.float32)
-    traj_times = data.time
+    if args.synthetic:
+        W, H, F = map(int, args.synthetic_size.split("x"))
+        data, traj = synthetic.generate(width=W, height=H, num_frames=F, device=dev)
+        # seed counts scaled to the scene's area (the reference's counts
+        # assume 512x288)
+        area_scale = (W * H) / (512 * 288)
+        s_pts, s_cols, d_traj = synthetic.init_point_clouds(
+            data, traj, max(200, int(cfg.opt.stat_npts * area_scale)),
+            max(60, int(cfg.opt.dyn_npts * area_scale)))
+        s_times = np.zeros(len(s_pts), np.float32)
+        d_times = np.zeros(len(d_traj), np.float32)
+        d_cols = np.full((len(d_traj), 3), 0.5, np.float32)
+        traj_times = data.time
+    else:
+        from mobgs_tpu_torch.data.stereo import sniff_dataset_type
+        from mobgs_tpu_torch.train import warm
+        kind = sniff_dataset_type(args.source_path)
+        if kind in ("nvidia", "stereo"):
+            # DyBluRF stereo: the warm-stage geometric init (tracklets)
+            from mobgs_tpu_torch.data.stereo import load_stereo_scene
+            scene = load_stereo_scene(args.source_path)
+            data = scene.data
+            print(f"loaded {data.w2c.shape[0]} frames "
+                  f"@ {data.width}x{data.height}")
+            pc = warm.warm_init(data.images, data.depths, data.w2c, data.K,
+                                data.time,
+                                (data.masks > 0.5).astype(np.float32),
+                                scene.tracklet, cfg.opt.stat_npts,
+                                cfg.opt.dyn_npts, seed=args.seed, device=dev)
+            s_pts, s_cols = pc.stat_points, pc.stat_colors
+            s_times = pc.stat_times
+            d_traj = pc.dyn_trajectory
+            d_cols, d_times = pc.dyn_colors, pc.dyn_times
+            traj_times = data.time
+        else:
+            # registry families: seed from the SfM cloud when present, else
+            # unproject the depth priors (load_scene raises for the kinds
+            # whose loaders are not ported yet)
+            from mobgs_tpu_torch.data.scene import load_scene
+            data = load_scene(args.source_path, kind=kind)
+            print(f"loaded [{kind}] {data.w2c.shape[0]} views "
+                  f"@ {data.width}x{data.height}")
+            rng_np = np.random.default_rng(args.seed)
+            if data.points_xyz is not None:
+                pts, cols = data.points_xyz, data.points_rgb
+            else:
+                pts, cols = warm.seed_from_depths(
+                    data, cfg.opt.stat_npts + cfg.opt.dyn_npts, rng_np, device=dev)
+            n_dyn = min(cfg.opt.dyn_npts, max(1, len(pts) // 10))
+            sel = rng_np.permutation(len(pts))
+            s_sel, d_sel = sel[n_dyn:], sel[:n_dyn]
+            s_pts, s_cols = pts[s_sel], cols[s_sel]
+            s_times = np.zeros(len(s_pts), np.float32)
+            # dynamic seeds start static (a constant trajectory); motion is
+            # learned through the spline controls
+            traj_times = np.unique(data.time)
+            d_traj = np.repeat(pts[d_sel][:, None], len(traj_times),
+                               axis=1).astype(np.float32)
+            d_cols = cols[d_sel].astype(np.float32)
+            d_times = np.zeros(len(d_sel), np.float32)
 
     # ---- states
     # the initial capacity is a multiple of the seed count; the loop grows

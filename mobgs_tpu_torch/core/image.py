@@ -3,13 +3,15 @@
 SSIM with an 11×11 Gaussian window (σ = 1.5), zero padding and a
 per-channel depthwise blur, and the per-batch-item PSNR, as the JAX package
 computes them (``image.py:35-89``). The 2D window is the outer product of a
-1D Gaussian, so the blur is two 1D depthwise convolutions. A float32
-convolution on the card runs in TF32 unless ``torch.backends.cudnn.allow_tf32``
-is False; callers that compare with a reference set it so.
+1D Gaussian, so the blur is two 1D depthwise convolutions. They run in full
+float32 on the card whatever ``torch.backends.cudnn.allow_tf32`` says
+(``fp32_convolutions``), so SSIM is the JAX package's float32 number in every
+entry point.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -24,6 +26,37 @@ def _gaussian_1d(window_size: int = 11, sigma: float = 1.5) -> np.ndarray:
     return (g / g.sum()).astype(np.float32)
 
 
+@contextlib.contextmanager
+def fp32_convolutions():
+    """cuDNN convolutions in full float32 inside the block: TF32 off for its
+    duration, the caller's cuDNN flags restored after it."""
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                     deterministic=cudnn.deterministic, allow_tf32=False):
+        yield
+
+
+class _Fp32Conv(torch.autograd.Function):
+    """``F.conv2d`` by a constant weight whose forward and backward both run
+    under ``fp32_convolutions`` (autograd runs a backward after the forward's
+    block has closed)."""
+
+    @staticmethod
+    def forward(ctx, x, w, padding, groups):
+        ctx.save_for_backward(w)
+        ctx.shape, ctx.padding, ctx.groups = x.shape, padding, groups
+        with fp32_convolutions():
+            return F.conv2d(x, w, padding=padding, groups=groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        (w,) = ctx.saved_tensors
+        with fp32_convolutions():
+            gx = torch.nn.grad.conv2d_input(ctx.shape, w, g, padding=ctx.padding,
+                                            groups=ctx.groups)
+        return gx, None, None, None
+
+
 def _depthwise_blur(img: torch.Tensor, window_size: int = 11) -> torch.Tensor:
     """Zero-padded depthwise Gaussian blur, img [B, C, H, W]."""
     C = img.shape[1]
@@ -31,8 +64,8 @@ def _depthwise_blur(img: torch.Tensor, window_size: int = 11) -> torch.Tensor:
     g = torch.as_tensor(_gaussian_1d(k), device=img.device, dtype=img.dtype)
     kh = g.reshape(1, 1, 1, k).expand(C, 1, 1, k)
     kv = g.reshape(1, 1, k, 1).expand(C, 1, k, 1)
-    out = F.conv2d(img, kh, padding=(0, k // 2), groups=C)
-    return F.conv2d(out, kv, padding=(k // 2, 0), groups=C)
+    out = _Fp32Conv.apply(img, kh, (0, k // 2), C)
+    return _Fp32Conv.apply(out, kv, (k // 2, 0), C)
 
 
 def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,

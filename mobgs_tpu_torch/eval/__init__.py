@@ -1,1 +1,4 @@
-"""Test-pose alignment and test-time pose optimization (TTO)."""
+"""Evaluation: test-pose alignment, test-time pose optimization (TTO),
+image metrics (PSNR, SSIM, LPIPS, tOF), pose metrics (ATE, RPE), camera
+paths and frustum line sets."""
+from mobgs_tpu_torch.eval import lpips, metrics, tto  # noqa: F401

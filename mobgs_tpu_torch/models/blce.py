@@ -154,7 +154,10 @@ def latent_poses(state: BLCEState, c2w: torch.Tensor, bf: torch.Tensor,
     for t in range(num_warp - 1):
         # WV_Derivative.forward (blce.py:260-275), unit Euler step
         r = torch.relu(x)
-        te = p["time_embed"][t]
+        # an index past the last embedding reads the last, as JAX's clamped
+        # indexing does (the eval CLI's default num_warp=9 on a checkpoint
+        # trained at fewer exposures)
+        te = p["time_embed"][min(t, p["time_embed"].shape[0] - 1)]
         w_in = torch.cat([r[:H], te, bf_feat])
         v_in = torch.cat([r[H:], te, bf_feat])
         x = x + torch.cat([w_in @ p["w_lin_w"] + p["w_lin_b"],

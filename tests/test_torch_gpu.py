@@ -710,3 +710,115 @@ def test_train_cli_on_card(cuda, tmp_path):
     assert float((k.w2c - p.w2c).abs().max()) <= 1e-5
     assert float((k.psnr - p.psnr).abs().max()) <= 1e-3
     assert float((k.w2c - args[0]).abs().max()) > 1e-5  # the poses moved
+
+
+@pytest.fixture
+def tf32_allowed():
+    """TF32 allowed for cuDNN convolutions process-wide (PyTorch's default)."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    yield
+    torch.backends.cudnn.allow_tf32 = prev
+
+
+@pytest.mark.gpu
+def test_ssim_is_float32_whatever_the_tf32_flag(cuda, tf32_allowed):
+    """SSIM on the card with TF32 allowed globally against the same call on
+    float64 CPU tensors: within 1e-5 (TF32's 10-bit mantissa misses by far
+    more); its gradient (autograd runs the backward after the forward's
+    guard has closed) equals the one with TF32 off."""
+    from mobgs_tpu_torch.core.image import ssim
+    rng = np.random.default_rng(0)
+    a = rng.uniform(size=(2, 3, 288, 512))
+    b = np.clip(a + rng.normal(0, 0.1, a.shape), 0, 1)
+    card = ssim(*(torch.as_tensor(x, dtype=torch.float32, device=cuda) for x in (a, b)),
+                size_average=False)
+    ref = ssim(*(torch.as_tensor(x, dtype=torch.float64) for x in (a, b)), size_average=False)
+    assert float((card.cpu().double() - ref).abs().max()) <= 1e-5
+
+    def grad():
+        x = torch.as_tensor(a, dtype=torch.float32, device=cuda).requires_grad_(True)
+        ssim(x, torch.as_tensor(b, dtype=torch.float32, device=cuda)).backward()
+        return x.grad
+    g_on = grad()
+    torch.backends.cudnn.allow_tf32 = False
+    g_off = grad()
+    assert float((g_on - g_off).abs().max()) <= 1e-6 * float(g_off.abs().max())
+
+
+@pytest.mark.gpu
+def test_lpips_on_card_matches_cpu(cuda, tf32_allowed):
+    """``lpips_distance`` on the card (TF32 allowed globally) against the CPU,
+    rtol 1e-5, with the random backbone and the default lin weights."""
+    from mobgs_tpu_torch.eval import lpips
+    rng = np.random.default_rng(1)
+    a = rng.uniform(-1, 1, (3, 3, 288, 512)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.2, a.shape), -1, 1).astype(np.float32)
+    d = {dev: lpips.lpips_distance(lpips.load_lpips(device=dev),
+                                   *(torch.as_tensor(x, device=dev) for x in (a, b))).cpu()
+         for dev in (cuda, "cpu")}
+    np.testing.assert_allclose(d[cuda].numpy(), d["cpu"].numpy(), rtol=1e-5, atol=0)
+
+
+@pytest.mark.gpu
+def test_warm_stage_on_card_matches_cpu(cuda, tmp_path):
+    """The warm stage on the card against the CPU on the fabricated stereo
+    scene (V = 4, 512x288): point maps atol 1e-5, error masks equal on all
+    but 1e-4 of the pixels (a threshold at the frame mean), and ``warm_init``
+    on the card gives the requested seed counts."""
+    from mobgs_tpu_torch.data.stereo import load_stereo_scene
+    from mobgs_tpu_torch.train import warm
+    from test_data_loaders import make_stereo_fixture
+    make_stereo_fixture(str(tmp_path / "scene"), V=4)
+    scene = load_stereo_scene(str(tmp_path / "scene"))
+    d = scene.data
+    out = {}
+    for dev in (cuda, "cpu"):
+        t = [torch.as_tensor(x, device=dev) for x in (d.images, d.depths, d.w2c, d.K)]
+        out[dev] = (warm.photometric_error_masks(*t).cpu(),
+                    torch.stack([warm.unproject_depth(*(x[v] for x in t[1:]))
+                                 for v in range(4)]).cpu())
+    assert float((out[cuda][0] != out["cpu"][0]).float().mean()) <= 1e-4
+    assert float((out[cuda][1] - out["cpu"][1]).abs().max()) <= 1e-5
+    pc = warm.warm_init(d.images, d.depths, d.w2c, d.K, d.time,
+                        (d.masks > 0.5).astype(np.float32), scene.tracklet, 3000, 700,
+                        seed=0, device=cuda)
+    assert pc.stat_points.shape == (3000, 3) and pc.dyn_trajectory.shape == (700, 4, 3)
+    assert np.isfinite(pc.dyn_trajectory).all()
+
+
+@pytest.mark.gpu
+def test_eval_and_metrics_cli_on_card(cuda, tmp_path, monkeypatch):
+    """``eval_cli`` at a small size on the card (a 64x48x6 checkpoint of the
+    train CLI, 3 TTO steps) through the kernels and, on a copy, through the
+    plain route: solved poses within 1e-5; then ``metrics_cli`` on the
+    card: finite PSNR, SSIM and ``lpips_randfeat``."""
+    import json
+    import os
+    import shutil
+    from mobgs_tpu_torch.cli import eval_cli, metrics_cli
+    from mobgs_tpu_torch.cli import train as cli
+    from mobgs_tpu_torch.eval import tto
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    overlay = tmp_path / "small.py"
+    overlay.write_text(CLI_OVERLAY.format(
+        base=os.path.join(root, "configs", "stereo", "seesaw.py")))
+    size = ["--synthetic", "--synthetic_size", "64x48x6"]
+    cli.main(["--configs", str(overlay), *size, "--num_warp", "3", "--iterations", "4",
+              "--test_iterations", "2", "--quiet", "-m", str(tmp_path / "kernels")])
+    shutil.copytree(tmp_path / "kernels", tmp_path / "plain")
+    argv = [*size, "--iteration", "best", "--tto_steps", "3", "--tto_decay_start", "1"]
+    cuda_raster.reset_launches()
+    eval_cli.main(argv + ["-m", str(tmp_path / "kernels")])
+    launches = dict(cuda_raster.instance_launches)
+    assert launches.get("raster_fwd CE=11", 0) > 0 and launches.get("raster_bwd CE=11", 0) > 0
+    real = tto.make_tto
+    monkeypatch.setattr(tto, "make_tto", lambda *a, **kw: real(
+        *a, raster_cfg=RasterConfig(backend="plain"), **kw))
+    eval_cli.main(argv + ["-m", str(tmp_path / "plain")])
+    k, p = (np.load(tmp_path / d / "solved_poses.npy") for d in ("kernels", "plain"))
+    assert k.shape == (6, 4, 4) and float(np.abs(k - p).max()) <= 1e-5
+    metrics_cli.main(["-m", str(tmp_path / "kernels")])
+    res = json.loads((tmp_path / "kernels" / "results.json").read_text())
+    assert res["n_frames"] == 6
+    assert all(np.isfinite(res[k]) for k in ("psnr", "ssim", "lpips_randfeat"))
