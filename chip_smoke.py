@@ -2,8 +2,9 @@
 """Chip smoke for the PyTorch/CUDA port (``mobgs_tpu_torch``).
 
 Drives the port's serving path, its flow-off and flow-on training steps, its
-exposure re-estimation, its host training loop, its train CLI and a user's
-whole run on a stereo scene (train, eval and metrics CLIs) on one CUDA card at the seesaw protocol's full
+exposure re-estimation, its host training loop, its train CLI, a user's
+whole run on a stereo scene (train, eval and metrics CLIs) and the train CLI
+on an iPhone and a Blender scene on one CUDA card at the seesaw protocol's full
 width (512x288, 24 frames, 20k static + 10k dynamic seeds at x2 capacity =
 40k + 20k slots, tiles_per_gauss=9, max_per_tile=256; training at B=2 views
 and E=9 latent exposures), with a scene made from a seed and random
@@ -123,14 +124,36 @@ Sandwich and BLCE weights:
     seconds of the loader, the warm stage, the training, the eval CLI and
     the metrics CLI, the ms of one TTO view, the launches by instance and
     the peak memory;
-19. print the ``{"kernels": [...]}`` line (launches: the flow-off training
-    path's), chip_smoke's wall seconds, then the card line and the
-    ``{"ok": true, ...}`` line last.
+19. the train CLI's registry branch as a user runs it (``python -m
+    mobgs_tpu_torch.cli.train -s <scene> --eval_tto``, the defaults of
+    ``Config``: flow on, B=1, E=9, 40,000 + 20,000 depth seeds, 54,000 +
+    6,000 of them kept) on two scenes written from the generator into
+    ``build/``: a dycheck iPhone scene at 360x480 (a partial tile column, the
+    principal point off the centre, a skew entry, ``scene.json`` scale 0.5, a
+    ``val`` split from a second camera) and a D-NeRF Blender scene at 800x800
+    (2,500 tiles; RGBA frames, ``transforms_{train,test}.json``), each loaded
+    back against the generator and trained REG_ITERS iterations with an eval
+    of 5 TTO steps: seconds of the loader, the seeding, the budget
+    validation, the loop and the eval, the loop's it/s, the peak memory, the
+    final loss, the eval PSNR, the validated budgets and the launches by
+    instance (every kernel launched), the checkpoint read back; the four
+    kernels at view 0 of each run's final state (CE=9 and CE=29 + sub,
+    forward and backward) against their plain versions, timed beside their
+    bounds; and the camera-shared static pool on the iPhone run's state
+    (dynamic pool a ninth of the static one) and on the protocol scene (a
+    half): one flow-on step shared and unshared (loss within LOSS_RTOL,
+    leaves within STEP_REL), the merged bins and the forward images of the
+    mid render and a flow pass bit-equal, and the device ms per step of both
+    with their launches (equal);
+20. print the ``{"kernels": [...]}`` line (launches: the flow-off training
+    path's and the registry runs'), chip_smoke's wall seconds, then the card
+    line and the ``{"ok": true, ...}`` line last.
 
 Every failure raises and exits non-zero. Without a CUDA card it exits 2
 and prints no result. Run: ``python3 chip_smoke.py``.
 """
 
+import contextlib
 import json
 import os
 import shutil
@@ -212,6 +235,18 @@ STEREO_ROOT = os.path.join(ROOT, "build", "chip_smoke_stereo")
 STEREO_TRACKS = 2048
 STEREO_ITERS, STEREO_TTO_STEPS = 10, 10
 STEREO_METRIC_ATOL = 1e-5
+# the registry runs (phase 19): a dycheck iPhone scene at the published 2x
+# resolution, 360x480 (22.5 tile columns; the principal point off the centre
+# and a skew entry), and a D-NeRF Blender scene at 800x800 (2,500 tiles), each
+# REG_FRAMES train and as many test frames (the train CLI's eval pairs test
+# view i with train view i, eval/align.py), trained REG_ITERS iterations (cut
+# from 30,000) by the train CLI with the defaults of Config; then the shared
+# static pool, SHARED_STEPS timed steps after SHARED_WARM
+REG_ROOT = os.path.join(ROOT, "build", "chip_smoke_registry")
+REG_FRAMES, REG_ITERS = 24, 10
+IPHONE_W, IPHONE_H, IPHONE_SKEW = 360, 480, 1.5
+BLENDER_W = 800
+SHARED_WARM, SHARED_STEPS = 3, 10
 # flow columns are displacements in pixels: their kernel-vs-plain difference
 # is held at IMG_ATOL times their largest magnitude (at least 1 pixel)
 # Published H100 SXM peaks (NVIDIA data sheet, at 700 W): float32 outside
@@ -290,6 +325,89 @@ def composite_plain64():
         res = Composite64.apply(ids, counts, rec, col, ntx, sub)
         return res if sub else (res, None)
     return plain64
+
+
+def raster_fwd_cost(ids_, cnt_, rec, col, sub, ntx_):
+    """Operations and bytes the forward needs on these inputs."""
+    from mobgs_tpu_torch.ops import cuda_raster
+    work = {}
+    with torch.no_grad():
+        cuda_raster.composite_tiles_plain(ids_, cnt_, rec, col, ntx_, sub,
+                                          work=work)
+    T_, CE = ids_.shape[0], col.shape[1]
+    pairs = int(work["slots"].sum()) * cuda_raster.P
+    # per live (slot, pixel) pair: dx, dy, sigma (11), exp (1), alpha (2),
+    # transmittance (2); per kept pair: weight (2) and CE multiply-adds
+    ops = pairs * 16 + int(work["valid"]) * (2 + 2 * CE)
+    n_ref = int(work["n_ref"])
+    bytes_ = 4 * (int(work["slots"].sum()) + T_ + n_ref * (6 + CE) + T_ * 256 * CE)
+    if sub:
+        ops += pairs * 4 + int(work["valid_sub"]) * 3
+        bytes_ += 4 * (n_ref + T_ * 256)
+    return ops, bytes_, pairs, work
+
+
+def raster_bwd_cost(ids_, cnt_, rec, col, sub, ntx_):
+    """Operations and bytes the backward needs on these inputs."""
+    from mobgs_tpu_torch.ops import cuda_raster
+    _, _, pairs, work = raster_fwd_cost(ids_, cnt_, rec, col, sub, ntx_)
+    T_, CE = ids_.shape[0], col.shape[1]
+    n_ref = int(work["n_ref"])
+    rows = 7 if sub else 6
+    # per live pair the replay of the forward (16); per kept pair: T_i,
+    # weight (3), c.g (2 CE), running sum (2), dL/dalpha (6), dL/dsigma
+    # (2), the five geometric terms (18), dL/do (1), CE colour terms, and
+    # the (6 + CE) sums over pixels
+    ops = pairs * 16 + int(work["valid"]) * (38 + 4 * CE)
+    # ids, counts, records and colours of the referenced Gaussians, out
+    # and g read once, the zeroed gradient tables written once, and a
+    # read-modify-write of each referenced Gaussian's gradient row
+    N_all = rec.shape[0]
+    bytes_ = 4 * (int(work["slots"].sum()) + T_ + n_ref * (rows + CE)
+                  + 2 * T_ * 256 * CE + N_all * (cuda_raster.R + CE)
+                  + 2 * n_ref * (rows + CE))
+    if sub:
+        # the subset chain: alpha and transmittance per live pair, 14 per
+        # kept pair and its sum over pixels; out2 and g2 read once
+        ops += pairs * 4 + int(work["valid_sub"]) * 15
+        bytes_ += 4 * 2 * T_ * 256
+    return ops, bytes_, pairs, work
+
+
+def bound(ops, bytes_):
+    """The least time for the work: operations over the float32 peak or
+    bytes over the memory rate, whichever is longer (ms)."""
+    return max(ops / PEAK_F32, bytes_ / PEAK_BYTES) * 1e3
+
+
+def bound_by(ops, bytes_):
+    return "operations" if ops / PEAK_F32 >= bytes_ / PEAK_BYTES else "bytes"
+
+
+def synced(fn, record):
+    """``fn`` run between two device synchronisations; ``record(seconds,
+    result)`` after each call."""
+    def wrapper(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.time()
+        res = fn(*a, **kw)
+        torch.cuda.synchronize()
+        record(time.time() - t, res)
+        return res
+    return wrapper
+
+
+@contextlib.contextmanager
+def replaced(*patches):
+    """Each ``(module, name, value)`` set for the block, restored after."""
+    reals = [getattr(m, n) for m, n, _ in patches]
+    for m, n, v in patches:
+        setattr(m, n, v)
+    try:
+        yield
+    finally:
+        for (m, n, _), real in zip(patches, reals):
+            setattr(m, n, real)
 
 
 def require(ok, what):
@@ -517,7 +635,6 @@ def write_stereo_scene(root, data, traj, seed=0):
     dynamic trajectories (a rigid offset of a ground-truth Gaussian each),
     projected into every frame, visible and confident where in front of the
     camera and inside the image."""
-    from PIL import Image
     rng = np.random.default_rng(seed)
     V = data.w2c.shape[0]
     for d in ("images_512x288", "inference_images", "align_uni_depth_noclip",
@@ -534,14 +651,10 @@ def write_stereo_scene(root, data, traj, seed=0):
     with open(os.path.join(root, "scene.json"), "w") as f:
         json.dump({"center": [0.0, 0.0, 0.0]}, f)
 
-    def png(img, *path):
-        Image.fromarray((np.clip(img, 0, 1) * 255).round().astype(np.uint8)).save(
-            os.path.join(root, *path))
-
     for i in range(V):
-        png(data.images[i], "images_512x288", f"{i:05d}.png")
-        png(data.test_images[i], "inference_images", f"{i:05d}.png")
-        png(data.masks[i], "motion_masks_manual", f"{i:05d}.png")
+        png(os.path.join(root, "images_512x288", f"{i:05d}.png"), data.images[i])
+        png(os.path.join(root, "inference_images", f"{i:05d}.png"), data.test_images[i])
+        png(os.path.join(root, "motion_masks_manual", f"{i:05d}.png"), data.masks[i])
         np.save(os.path.join(root, "align_uni_depth_noclip", f"{i:05d}.npy"),
                 data.depths[i].astype(np.float32))
     K = data.K[0]
@@ -605,35 +718,18 @@ def stereo_phase(dev, card, times):
     # train.sh: the loader and the warm stage timed inside the CLI
     seen = {}
 
-    def timed(mod, name):
-        real = getattr(mod, name)
+    def record(key):
+        return lambda sec, res: seen.__setitem__(key, (sec, res))
 
-        def wrapper(*a, **kw):
-            torch.cuda.synchronize()
-            t = time.time()
-            res = real(*a, **kw)
-            torch.cuda.synchronize()
-            seen[name] = (time.time() - t, res)
-            return res
-        return real, wrapper
-
-    patched = [(stereo, "load_stereo_scene"), (warm, "warm_init")]
-    reals = []
-    for mod, name in patched:
-        real, wrapper = timed(mod, name)
-        reals.append(real)
-        setattr(mod, name, wrapper)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     cuda_raster.reset_launches()
     t0 = time.time()
-    try:
+    with replaced(*[(m, n, synced(getattr(m, n), record(n)))
+                    for m, n in ((stereo, "load_stereo_scene"), (warm, "warm_init"))]):
         ts, hist = cli.main(["-s", scene, "--configs", seesaw, "--iterations", str(STEREO_ITERS), "--test_iterations",
                              str(STEREO_ITERS), "--quiet", "-m", out])
         torch.cuda.synchronize()
-    finally:
-        for (mod, name), real in zip(patched, reals):
-            setattr(mod, name, real)
     times["stereo_train_s"] = time.time() - t0
     train_launches = dict(cuda_raster.instance_launches)
     kernel_launches = dict(cuda_raster.launches)
@@ -657,30 +753,15 @@ def stereo_phase(dev, card, times):
 
     # eval.sh: the eval CLI, its TTO timed
     tto_time = {}
-    real_make_tto = tto.make_tto
-
-    def timed_make_tto(*a, **kw):
-        fn = real_make_tto(*a, **kw)
-
-        def run(*b):
-            torch.cuda.synchronize()
-            t = time.time()
-            res = fn(*b)
-            torch.cuda.synchronize()
-            tto_time["s"] = time.time() - t
-            return res
-        return run
-
+    make_tto = tto.make_tto
     cuda_raster.reset_launches()
-    tto.make_tto = timed_make_tto
     t0 = time.time()
-    try:
+    with replaced((tto, "make_tto", lambda *a, **kw: synced(
+            make_tto(*a, **kw), lambda sec, _: tto_time.__setitem__("s", sec)))):
         res = eval_cli.main(["-s", scene, "-m", out, "--iteration", "best", "--tto_steps",
                              str(STEREO_TTO_STEPS), "--tto_decay_start",
                              str(STEREO_TTO_STEPS // 2)])
         torch.cuda.synchronize()
-    finally:
-        tto.make_tto = real_make_tto
     times["stereo_eval_s"] = time.time() - t0
     eval_launches = dict(cuda_raster.instance_launches)
     refined = sorted(os.listdir(os.path.join(out, "test_refined")))
@@ -759,6 +840,412 @@ def stereo_phase(dev, card, times):
           f"{times['stereo_train_s']:.2f}, eval CLI {times['stereo_eval_s']:.2f}, metrics CLI "
           f"{times['stereo_metrics_s']:.2f}; peak device memory {peak / 2**30:.3f} GiB "
           f"(torch.cuda.max_memory_allocated), on {card}")
+
+
+
+def png(path, img):
+    from PIL import Image
+    Image.fromarray((np.clip(img, 0, 1) * 255).round().astype(np.uint8)).save(path)
+
+
+def write_iphone_scene(root, dev):
+    """A dycheck iPhone scene directory (``data/iphone.py``'s layout) from the
+    generator, at the published 2x resolution, 360x480 (W x H): the generator
+    renders 392x512 frames and each is cropped at (20, 24), so the principal
+    point sits off the centre at (176, 232) and the images agree with it.
+    ``scene.json`` holds scale 0.5 (the loader multiplies depths and camera
+    positions by it), so the files hold depths and positions over 0.5.
+    Camera 0 has the REG_FRAMES blurry train frames; camera 1 the sharp
+    frames at the same times (the ``val`` split). Cameras at 1x (720x960)
+    with a skew entry. Depths with the background filled at 1.5x the frame's
+    farthest depth (a depth sensor sees a wall, not nothing). Returns the
+    generator's data, cropped."""
+    from mobgs_tpu_torch.data import synthetic
+    gw, gh = IPHONE_W + 32, IPHONE_H + 32
+    x0, y0 = 20, 24
+    data, _ = synthetic.generate(width=gw, height=gh, num_frames=REG_FRAMES, device=dev)
+
+    def crop(a):
+        return a[:, y0:y0 + IPHONE_H, x0:x0 + IPHONE_W]
+
+    for d in ("rgb/2x", "depth/2x", "camera", "splits", "motion_masks"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    scale = 0.5
+    with open(os.path.join(root, "scene.json"), "w") as f:
+        json.dump({"scale": scale, "center": [0.0, 0.0, 0.0], "near": 0.1, "far": 50.0}, f)
+    val_t = list(range(REG_FRAMES))
+    with open(os.path.join(root, "splits", "train.json"), "w") as f:
+        json.dump({"time_ids": list(range(REG_FRAMES)), "camera_ids": [0] * REG_FRAMES}, f)
+    with open(os.path.join(root, "splits", "val.json"), "w") as f:
+        json.dump({"time_ids": val_t, "camera_ids": [1] * len(val_t)}, f)
+    with open(os.path.join(root, "dataset.json"), "w") as f:
+        json.dump({"count": REG_FRAMES, "num_exemplars": REG_FRAMES}, f)
+    fx = float(data.K[0, 0, 0])
+    pp = np.array([gw / 2 - x0, gh / 2 - y0])
+    images, depths, masks, tests = (crop(data.images), crop(data.depths), crop(data.masks),
+                                    crop(data.test_images))
+
+    def camera(cam, t, w2c):
+        R = w2c[:3, :3].astype(np.float64)
+        with open(os.path.join(root, "camera", f"{cam}_{t:05d}.json"), "w") as f:
+            json.dump({"orientation": R.tolist(),
+                       "position": (-R.T @ w2c[:3, 3] / scale).tolist(),
+                       "focal_length": 2 * fx, "principal_point": (2 * pp).tolist(),
+                       "skew": IPHONE_SKEW, "pixel_aspect_ratio": 1.0,
+                       "radial_distortion": [0.0, 0.0, 0.0],
+                       "tangential_distortion": [0.0, 0.0],
+                       "image_size": [2 * IPHONE_W, 2 * IPHONE_H]}, f)
+
+    for t in range(REG_FRAMES):
+        name = f"0_{t:05d}"
+        png(os.path.join(root, "rgb", "2x", name + ".png"), images[t])
+        png(os.path.join(root, "motion_masks", name + ".png"), masks[t])
+        dep = np.where(depths[t] > 0, depths[t], 1.5 * depths[t].max())
+        np.save(os.path.join(root, "depth", "2x", name + ".npy"),
+                (dep / scale).astype(np.float32))
+        camera(0, t, data.w2c[t])
+    for t in val_t:
+        png(os.path.join(root, "rgb", "2x", f"1_{t:05d}.png"), tests[t])
+        camera(1, t, data.test_w2c[t])
+    return data._replace(images=images, depths=depths, masks=masks, test_images=tests,
+                         width=IPHONE_W, height=IPHONE_H), pp
+
+
+def write_blender_scene(root, dev):
+    """A D-NeRF-style Blender scene directory (``data/scene.py::
+    load_blender_scene``'s layout) from the generator at 800x800:
+    ``transforms_train.json`` with REG_FRAMES blurry frames and
+    ``transforms_test.json`` with as many sharp ones, each frame an RGBA PNG
+    whose alpha is the generator's alpha and whose colour is the generator's
+    image over that alpha (so the loader's black-background composite gives
+    the image back), a Blender-convention ``transform_matrix`` (camera to
+    world, y and z axes flipped) and its ``time``; ``camera_angle_x`` from the
+    generator's focal length."""
+    from mobgs_tpu_torch.data import synthetic
+    data, _, (alpha, alpha_sharp) = synthetic.generate(
+        width=BLENDER_W, height=BLENDER_W, num_frames=REG_FRAMES, device=dev,
+        return_alpha=True)
+    fx = float(data.K[0, 0, 0])
+    for split in ("train", "test"):
+        os.makedirs(os.path.join(root, split), exist_ok=True)
+    for split in ("train", "test"):
+        imgs, w2cs, a = ((data.images, data.w2c, alpha) if split == "train"
+                         else (data.test_images, data.test_w2c, alpha_sharp))
+        frames = []
+        for i in range(REG_FRAMES):
+            rgb = imgs[i] / np.maximum(a[i], 1e-6)[..., None]
+            png(os.path.join(root, split, f"r_{i:03d}.png"),
+                np.concatenate([rgb, a[i][..., None]], -1))
+            c2w = np.linalg.inv(w2cs[i].astype(np.float64))
+            c2w[:3, 1:3] *= -1
+            frames.append({"file_path": f"./{split}/r_{i:03d}", "time": float(data.time[i]),
+                           "transform_matrix": c2w.tolist()})
+        with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": 2 * float(np.arctan(0.5 * BLENDER_W / fx)),
+                       "frames": frames}, f)
+    return data
+
+
+def registry_phase(dev, card, times, protocol, trace):
+    """Phase 19: the train CLI's registry branch on a dycheck iPhone scene
+    (360x480) and a D-NeRF Blender scene (800x800) written from the
+    generator, each as a user runs it (``python -m mobgs_tpu_torch.cli.train
+    -s <scene> --eval_tto``, the defaults of ``Config``: flow on, E=9, B=1,
+    40,000 + 20,000 depth seeds), for REG_ITERS iterations; the four kernels
+    against their plain versions at one view of each run's final state; the
+    camera-shared static pool against the unshared step on the iPhone run's
+    state and on the protocol scene, timed over SHARED_STEPS steps and one
+    step of each traced with ``trace`` (device busy time by kernel name).
+    Returns the kernels' launches over the two runs."""
+    from mobgs_tpu_torch.cli import train as cli
+    from mobgs_tpu_torch.config import Config
+    from mobgs_tpu_torch.data import scene as scene_mod
+    from mobgs_tpu_torch.data.cameras import Camera
+    from mobgs_tpu_torch.eval import tto
+    from mobgs_tpu_torch.io import checkpoint as ckpt
+    from mobgs_tpu_torch.io import ply, torch_ckpt
+    from mobgs_tpu_torch.models import gaussians as G
+    from mobgs_tpu_torch.models import render as R
+    from mobgs_tpu_torch.ops import cuda_raster, tiles
+    from mobgs_tpu_torch.ops import rasterize as rasterize_mod
+    from mobgs_tpu_torch.ops.rasterize import RasterConfig
+    from mobgs_tpu_torch.train import loop as L
+    from mobgs_tpu_torch.train import debug_vis
+    from mobgs_tpu_torch.train import step as S
+    from mobgs_tpu_torch.train import warm
+
+    shutil.rmtree(REG_ROOT, ignore_errors=True)
+    launches_total = {}
+    finals = {}
+    for name, writer, (w, h) in (("iphone", write_iphone_scene, (IPHONE_W, IPHONE_H)),
+                                 ("blender", write_blender_scene, (BLENDER_W, BLENDER_W))):
+        scene, out = os.path.join(REG_ROOT, name, "scene"), os.path.join(REG_ROOT, name, "out")
+        t0 = time.time()
+        written = writer(scene, dev)
+        times[f"reg_{name}_write_s"] = time.time() - t0
+        gen = written[0] if name == "iphone" else written
+        # the loaded scene against the generator's
+        loaded = scene_mod.load_scene(scene)
+        require(loaded.images.shape == (REG_FRAMES, h, w, 3)
+                and loaded.test_images.shape == (REG_FRAMES, h, w, 3), f"{name} loaded shapes")
+        img_err = float(np.abs(loaded.images - gen.images).max())
+        rot = float(np.abs(loaded.w2c[:, :3, :3] - gen.w2c[:, :3, :3]).max())
+        # PNG quantisation: half a level, and for the RGBA frames the colour's
+        # and the alpha's half levels both
+        require(img_err <= (0.51 if name == "iphone" else 1.01) / 255 and rot <= 1e-5,
+                f"{name}: images {img_err}, rotations {rot}")
+        if name == "iphone":
+            pp = written[1]
+            require(np.allclose(loaded.K[:, 0, 2], pp[0]) and np.allclose(loaded.K[:, 1, 2], pp[1])
+                    and np.all(loaded.K[:, 0, 1] == IPHONE_SKEW),
+                    f"iphone intrinsics {loaded.K[0]}")
+        print(f"{name} scene: {REG_FRAMES} train + {REG_FRAMES} test frames at {w}x{h} "
+              f"({-(-w // 16)}x{-(-h // 16)} tiles), K {np.round(loaded.K[0], 3).tolist()}; "
+              f"written in {times[f'reg_{name}_write_s']:.2f} s; loaded frames within "
+              f"{img_err:.3g} of the generator's, rotations within {rot:.3g}")
+
+        # the train CLI as a user runs it, its stages timed
+        # (module, function, the key its seconds add to); the checkpoint
+        # writers and the debug grid run inside the loop too, and the
+        # checkpoint seconds are also read when the loop returns
+        seen, evals = {}, []
+        timers = [(scene_mod, "load_scene", "load"), (warm, "seed_from_depths", "seed"),
+                  (L, "train", "train"), (rasterize_mod, "validate_max_per_tile", "validate"),
+                  (ckpt, "save_train_state", "ckpt"), (torch_ckpt, "save_blce_pth", "ckpt"),
+                  (torch_ckpt, "save_deformation_pth", "ckpt"), (ply, "save_gaussians", "ckpt"),
+                  (debug_vis, "dump_debug_images", "debug")]
+
+        def add(key):
+            def record(sec, _):
+                seen[key] = seen.get(key, 0.0) + sec
+                if key == "train":
+                    seen["ckpt_in_train"] = seen.get("ckpt", 0.0)
+            return record
+
+        make_tto = tto.make_tto
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        cuda_raster.reset_launches()
+        t0 = time.time()
+        with replaced(*[(m, n, synced(getattr(m, n), add(key))) for m, n, key in timers],
+                      (tto, "make_tto", lambda *a, **kw: synced(
+                          make_tto(*a, **kw), lambda sec, _: evals.append(sec)))):
+            ts, hist = cli.main(["-s", scene, "--iterations", str(REG_ITERS), "--test_iterations",
+                                 str(REG_ITERS), "--eval_tto", "--quiet", "-m", out])
+            torch.cuda.synchronize()
+        total_s = time.time() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        kl, il = dict(cuda_raster.launches), dict(cuda_raster.instance_launches)
+        for k, v in kl.items():
+            launches_total[k] = launches_total.get(k, 0) + v
+        require(all(kl.get(k, 0) > 0 for k in REPLACES), f"{name} launches {kl}")
+        last = hist[-1]
+        with open(os.path.join(out, "eval_curve.json")) as f:
+            curve = json.load(f)
+        require([hh["iter"] for hh in hist] == [REG_ITERS] and np.isfinite(last["loss"])
+                and last["flow"] > 0, f"{name} history {hist}")
+        require([e["iter"] for e in curve] == [REG_ITERS]
+                and np.isfinite(curve[0]["test_psnr"]), f"{name} eval curve {curve}")
+        n_seed = ts.stat.capacity // 2, ts.dyn.capacity // 2
+        require(n_seed == (54_000, 6_000), f"{name} seeds {n_seed}")
+        # the checkpoint read back
+        ck = os.path.join(out, "point_cloud", f"iteration_{REG_ITERS}", "train_state.npz")
+        back = ckpt.flatten_train_state(ckpt.load_train_state(ck, ts))
+        mine = ckpt.flatten_train_state(ts)
+        require(back.keys() == mine.keys() and all(np.array_equal(back[k], mine[k])
+                                                   for k in mine), f"{name} checkpoint")
+        # the loop's own seconds: the steps and its host work, without the
+        # eval's TTO, the checkpoint written at the eval and the debug grid
+        steps_s = (seen["train"] - sum(evals) - seen["ckpt_in_train"]
+                   - seen.get("debug", 0.0))
+        times.update({f"reg_{name}_{k}": v for k, v in (
+            ("cli_s", total_s), ("load_s", seen["load"]), ("seed_s", seen["seed"]),
+            ("validate_s", seen["validate"]), ("loop_s", seen["train"]), ("steps_s", steps_s),
+            ("eval_s", sum(evals)), ("ckpt_s", seen["ckpt"]),
+            ("debug_s", seen.get("debug", 0.0)))})
+        print(f"{name} train CLI: {total_s:.2f} s for {REG_ITERS} iterations (Config defaults: "
+              f"flow on, B=1, E=9; {ts.stat.capacity} + {ts.dyn.capacity} slots from "
+              f"{n_seed[0]} + {n_seed[1]} depth seeds); loader {seen['load']:.2f} s, "
+              f"seeding {seen['seed']:.2f} s, budget validation {seen['validate']:.2f} s, "
+              f"the loop {seen['train']:.2f} s, of it the steps {steps_s:.2f} s "
+              f"({REG_ITERS / max(steps_s, 1e-9):.3f} it/s), the debug grid "
+              f"{seen.get('debug', 0.0):.2f} s, the eval's TTO (5 steps) {sum(evals):.2f} s "
+              f"({len(evals)} calls: aligned and raw poses) and the best checkpoint "
+              f"{seen['ckpt_in_train']:.2f} s; both checkpoints {seen['ckpt']:.2f} s; final loss "
+              f"{last['loss']:.5f} flow {last['flow']:.5g}, eval PSNR {curve[0]['test_psnr']:.4f} "
+              f"(raw {curve[0]['test_psnr_raw']:.4f}); validated tiles_per_gauss "
+              f"{last['tiles_per_gauss']} max_per_tile {last['max_per_tile']} (tile_max "
+              f"{last['tile_max']}); peak device memory {peak / 2**30:.3f} GiB; on {card}")
+        print(f"{name} launches by kernel instance: {json.dumps(il)}; checkpoint read back equal")
+
+        # the kernels against their plain versions at one view of the run
+        data = loaded
+        cam = Camera(w2c=torch.as_tensor(data.w2c[0], device=dev),
+                     K=torch.as_tensor(data.K[0], device=dev),
+                     time=torch.tensor(float(data.time[0]), device=dev))
+        cfg = RasterConfig(tiles_per_gauss=last["tiles_per_gauss"],
+                           max_per_tile=last["max_per_tile"])
+        with torch.no_grad():
+            geom, splats = R.assemble_project(ts.stat, ts.dyn, cam, w, h, data.max_time,
+                                              config=cfg)
+            bins = tiles.bin_gaussians(splats, w, h, tiles_per_gauss=cfg.tiles_per_gauss,
+                                       max_per_tile=cfg.max_per_tile)
+        ids, cnt, ntx = bins.gauss_ids.contiguous(), bins.counts.contiguous(), bins.n_tiles_x
+        N = geom.means.shape[0]
+        rng = np.random.default_rng(19)
+        col9 = geom.colors.detach().contiguous()
+        col29 = torch.cat([geom.colors, torch.as_tensor(
+            rng.normal(size=(N, 2 * E_WARP)).astype(np.float32), device=dev),
+            splats.depths[:, None], torch.ones(N, 1, device=dev)], 1).detach().contiguous()
+        sub_op = (geom.opacity * geom.dyn_mask).detach()
+        for label, col, sub in (("CE=9", col9, False), ("CE=29 + sub", col29, True)):
+            rec = cuda_raster.pack_records(splats, geom.opacity, sub_op if sub else None).detach()
+            with torch.no_grad():
+                out, out2 = cuda_raster.composite_fwd(ids, cnt, rec, col, ntx, sub)
+                p_out, p_out2 = cuda_raster.composite_tiles_plain(ids, cnt, rec, col, ntx, sub)
+            CE = col.shape[1]
+            e = {"image": float((out[..., :9] - p_out[..., :9]).abs().max())}
+            if sub:
+                e.update({"flow/tol": flow_err(out[..., 9:CE - 2], p_out[..., 9:CE - 2]),
+                          "depth/tol": flow_err(out[..., CE - 2], p_out[..., CE - 2]),
+                          "weight": float((out[..., CE - 1] - p_out[..., CE - 1]).abs().max()),
+                          "sub_alpha": float((out2 - p_out2).abs().max())})
+            require(e["image"] <= IMG_ATOL and e.get("weight", 0) <= IMG_ATOL
+                    and e.get("sub_alpha", 0) <= IMG_ATOL and e.get("flow/tol", 0) <= 1
+                    and e.get("depth/tol", 0) <= 1, f"{name} forward {label} {e}")
+            img = cuda_raster._untile(out, ntx, ids.shape[0] // ntx, w, h)
+            require(img.shape[:2] == (h, w) and bool(torch.isfinite(img).all()),
+                    f"{name} {label} image {tuple(img.shape)}")
+            g = torch.as_tensor(rng.normal(size=out.shape).astype(np.float32), device=dev)
+            g2 = (torch.as_tensor(rng.normal(size=out2.shape).astype(np.float32), device=dev)
+                  if sub else None)
+            args = (ids, cnt, rec, col, out, out2, g, g2, ntx, sub)
+            kb = cuda_raster.composite_bwd(*args)
+            pb = cuda_raster.composite_bwd_plain(*args)
+            torch.cuda.synchronize()
+            rel = {j: float((kb[0][:, j] - pb[0][:, j]).abs().max())
+                   / max(float(pb[0][:, j].abs().max()), 1e-30) for j in range(7 if sub else 6)}
+            rel["colors"] = float((kb[1] - pb[1]).abs().max()) / max(float(pb[1].abs().max()),
+                                                                    1e-30)
+            require(max(rel.values()) <= BWD_REL, f"{name} backward {label} {rel}")
+            with torch.no_grad():
+                ms_f = cuda_ms(lambda: cuda_raster.composite_fwd(ids, cnt, rec, col, ntx, sub), 20)
+                pms_f = cuda_ms(lambda: cuda_raster.composite_tiles_plain(ids, cnt, rec, col, ntx,
+                                                                          sub), 3)
+            ms_b = cuda_ms(lambda: cuda_raster.composite_bwd(*args), 20)
+            pms_b = cuda_ms(lambda: cuda_raster.composite_bwd_plain(*args), 3)
+            of, bf, pairs, work = raster_fwd_cost(ids, cnt, rec, col, sub, ntx)
+            ob, bb, _, _ = raster_bwd_cost(ids, cnt, rec, col, sub, ntx)
+            print(f"{name} view 0 ({w}x{h}, T={ids.shape[0]}, K={ids.shape[1]}, {pairs} pairs, "
+                  f"{int(work['valid'])} kept) {label}: forward vs plain {json.dumps(e)}, "
+                  f"backward max |k-p|/max|p| {max(rel.values()):.3g}; forward {ms_f:.4f} ms "
+                  f"(plain {pms_f:.3f}, bound {bound(of, bf):.4f} by {bound_by(of, bf)}, "
+                  f"{100 * bound(of, bf) / ms_f:.1f} % of bound), backward {ms_b:.4f} ms with the "
+                  f"zeroed outputs (plain {pms_b:.3f}, bound {bound(ob, bb):.4f} by "
+                  f"{bound_by(ob, bb)}, {100 * bound(ob, bb) / ms_b:.1f} % of bound), on {card}")
+        finals[name] = (ts, loaded, cfg)
+
+    # the camera-shared static pool against the unshared step
+    ts_p, data_p, cfg_p, opt_p = protocol
+    for name, (ts, data, cfg), opt, batch_views in (
+            ("iphone", finals["iphone"], None, 1),
+            ("protocol", (ts_p(), data_p, cfg_p), opt_p, B_VIEWS)):
+        opt = opt or Config().opt
+        w, h = data.width, data.height
+        ids_b = np.arange(batch_views) * 3 + 1
+        batch = L.make_batch(data, ids_b, dev)
+        cam = Camera(w2c=batch.w2c[0], K=batch.K[0], time=batch.time[0])
+        # the bins and the forward images of the mid render and one flow pass
+        with torch.no_grad():
+            _, sp = R.assemble_project(ts.stat, ts.dyn, cam, w, h, data.max_time, -1.0, cfg)
+            # the flow pass's splats, static rows binned once and the dynamic
+            # ones merged, against the binning of the concatenation
+            Ms = ts.stat.capacity
+            sb = tiles.bin_static(type(sp)(*(x[:Ms] for x in sp)), w, h, cfg.tiles_per_gauss,
+                                  cfg.max_per_tile)
+            merged = tiles.merge_dyn_bins(sb, type(sp)(*(x[Ms:] for x in sp)), Ms, w, h,
+                                          cfg.tiles_per_gauss, cfg.max_per_tile)
+            ref = tiles.bin_gaussians(sp, w, h, cfg.tiles_per_gauss, cfg.max_per_tile)
+            live = torch.arange(ref.gauss_ids.shape[1], device=dev)[None] < ref.counts[:, None]
+            bins_equal = (torch.equal(merged.counts, ref.counts)
+                          and int(merged.max_count) == int(ref.max_count)
+                          and torch.equal(torch.where(live, merged.gauss_ids, -1),
+                                          torch.where(live, ref.gauss_ids, -1)))
+            renders = {}
+            for mode in (True, False):
+                bg = torch.zeros(3, device=dev)
+                kw = dict(get_dynamic=True, subset_alpha_only=True, config=cfg,
+                          shared=R.make_shared_view(ts.stat, cam, w, h, cfg) if mode else None)
+                mid = R.render_view(ts.stat, ts.dyn, ts.sandwich, cam, w, h, bg, data.max_time,
+                                    None, **kw)
+                flw = R.render_view(ts.stat, ts.dyn, ts.sandwich, cam, w, h, bg, data.max_time,
+                                    -1.0, want_depth=False, want_alpha=False, **kw)
+                renders[mode] = [mid.image, mid.alpha, mid.depth, mid.d_alpha, flw.image,
+                                 flw.d_alpha]
+            images_equal = all(torch.equal(a, b) for a, b in zip(renders[True], renders[False]))
+        res, steps = {}, {}
+        leaves = [*G.split_diff(ts.stat)[0], *G.split_diff(ts.dyn)[0],
+                  *S.sandwich_leaves(ts.sandwich),
+                  *ts.blce.params.leaves()]
+        for mode in (True, False):
+            fwd = S.make_forward(opt, w, h, data.max_time, E_WARP, cfg, shared_static=mode)
+            off = torch.zeros((batch_views, ts.stat.capacity + ts.dyn.capacity, 2), device=dev,
+                              requires_grad=True)
+            with torch.enable_grad():
+                for p in leaves:
+                    p.requires_grad_(True)
+                total, aux = fwd(ts.stat, ts.dyn, ts.sandwich, ts.blce, off, batch)
+                grads = torch.autograd.grad(total, leaves + [off], allow_unused=True)
+            for p in leaves:
+                p.requires_grad_(False)
+            res[mode] = (float(total.detach()), float(aux["flow"].detach()), grads)
+        loss_rel = abs(res[True][0] - res[False][0]) / abs(res[False][0])
+        leaf_rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                       for a, b in zip(res[True][2], res[False][2])
+                       if b is not None and b.any())
+        # device ms per step: CUDA events over 10 steps after 3 warm-up
+        for mode in (True, False):
+            step = S.make_train_step(opt, w, h, data.max_time, E_WARP, cfg, shared_static=mode)
+            sampler = L.BatchSampler(data.w2c.shape[0], batch_views, seed=5)
+            for _ in range(SHARED_WARM):
+                ts, _ = step(ts, L.make_batch(data, sampler.next_ids(), dev))
+            batches = [L.make_batch(data, sampler.next_ids(), dev) for _ in range(SHARED_STEPS)]
+            torch.cuda.synchronize()
+            cuda_raster.reset_launches()
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.time()
+            start.record()
+            for b in batches:
+                ts, m = step(ts, b)
+            stop.record()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.time() - t0) / SHARED_STEPS
+            launches = dict(cuda_raster.instance_launches)
+            b = L.make_batch(data, sampler.next_ids(), dev)
+            (ts, _), busy_us = trace(lambda: step(ts, b), f"{name} step, shared_static={mode}")
+            steps[mode] = (start.elapsed_time(stop) / SHARED_STEPS, wall_ms, launches,
+                           busy_us / 1e3)
+        print(f"shared static ({name}: {ts.stat.capacity} + {ts.dyn.capacity} slots, "
+              f"{int(ts.stat.num_live())} + {int(ts.dyn.num_live())} live, {w}x{h}, B={batch_views}, "
+              f"E={E_WARP}, flow on): loss shared {res[True][0]:.7f} unshared {res[False][0]:.7f} "
+              f"(rel {loss_rel:.3g}), worst leaf {leaf_rel:.3g} of its magnitude, bins bit-equal "
+              f"{bins_equal}, forward images bit-equal {images_equal}; per step shared "
+              f"{steps[True][0]:.2f} ms, unshared {steps[False][0]:.2f} ms on the card's clock "
+              f"over {SHARED_STEPS} steps after {SHARED_WARM} (the device waits on the host: the "
+              f"wall clock reads {steps[True][1]:.1f} / {steps[False][1]:.1f}); device busy in one "
+              f"traced step shared {steps[True][3]:.2f} ms, unshared {steps[False][3]:.2f} ms; "
+              f"launches shared {json.dumps(steps[True][2])}, unshared "
+              f"{json.dumps(steps[False][2])}; on {card}")
+        times[f"shared_{name}_ms"] = steps[True][0]
+        times[f"unshared_{name}_ms"] = steps[False][0]
+        times[f"shared_{name}_busy_ms"] = steps[True][3]
+        times[f"unshared_{name}_busy_ms"] = steps[False][3]
+        require(loss_rel <= LOSS_RTOL and leaf_rel <= STEP_REL["stat"],
+                f"shared static {name}: loss {loss_rel}, leaves {leaf_rel}")
+        require(bins_equal, f"shared static {name}: merged bins differ from bin_gaussians")
+        require(images_equal, f"shared static {name}: forward images differ")
+        require(steps[True][2] == steps[False][2], f"shared static {name}: launches differ")
+    return launches_total
 
 
 def main():
@@ -1386,50 +1873,10 @@ def main():
     entries = []
 
     def fwd_cost(ids_, cnt_, rec, col, sub, ntx_=None):
-        """Operations and bytes the forward needs on these inputs."""
-        work = {}
-        with torch.no_grad():
-            cuda_raster.composite_tiles_plain(ids_, cnt_, rec, col, ntx_ or ntx, sub,
-                                              work=work)
-        T_, CE = ids_.shape[0], col.shape[1]
-        pairs = int(work["slots"].sum()) * cuda_raster.P
-        # per live (slot, pixel) pair: dx, dy, sigma (11), exp (1), alpha (2),
-        # transmittance (2); per kept pair: weight (2) and CE multiply-adds
-        ops = pairs * 16 + int(work["valid"]) * (2 + 2 * CE)
-        n_ref = int(work["n_ref"])
-        bytes_ = 4 * (int(work["slots"].sum()) + T_ + n_ref * (6 + CE) + T_ * 256 * CE)
-        if sub:
-            ops += pairs * 4 + int(work["valid_sub"]) * 3
-            bytes_ += 4 * (n_ref + T_ * 256)
-        return ops, bytes_, pairs, work
+        return raster_fwd_cost(ids_, cnt_, rec, col, sub, ntx_ or ntx)
 
     def bwd_cost(ids_, cnt_, rec, col, sub, ntx_=None):
-        """Operations and bytes the backward needs on these inputs."""
-        _, _, pairs, work = fwd_cost(ids_, cnt_, rec, col, sub, ntx_)
-        T_, CE = ids_.shape[0], col.shape[1]
-        n_ref = int(work["n_ref"])
-        rows = 7 if sub else 6
-        # per live pair the replay of the forward (16); per kept pair: T_i,
-        # weight (3), c.g (2 CE), running sum (2), dL/dalpha (6), dL/dsigma
-        # (2), the five geometric terms (18), dL/do (1), CE colour terms, and
-        # the (6 + CE) sums over pixels
-        ops = pairs * 16 + int(work["valid"]) * (38 + 4 * CE)
-        # ids, counts, records and colours of the referenced Gaussians, out
-        # and g read once, the zeroed gradient tables written once, and a
-        # read-modify-write of each referenced Gaussian's gradient row
-        N_all = rec.shape[0]
-        bytes_ = 4 * (int(work["slots"].sum()) + T_ + n_ref * (rows + CE)
-                      + 2 * T_ * 256 * CE + N_all * (cuda_raster.R + CE)
-                      + 2 * n_ref * (rows + CE))
-        if sub:
-            # the subset chain: alpha and transmittance per live pair, 14 per
-            # kept pair and its sum over pixels; out2 and g2 read once
-            ops += pairs * 4 + int(work["valid_sub"]) * 15
-            bytes_ += 4 * 2 * T_ * 256
-        return ops, bytes_, pairs, work
-
-    def bound(ops, bytes_):
-        return max(ops / PEAK_F32, bytes_ / PEAK_BYTES) * 1e3
+        return raster_bwd_cost(ids_, cnt_, rec, col, sub, ntx_ or ntx)
 
     def entry(key, ms, plain_ms, ops, bytes_, err):
         entries.append({
@@ -1438,7 +1885,7 @@ def main():
             "replaces": REPLACES[key], "launches": train_launches[key],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound(ops, bytes_),
-            "bound_by": "operations" if ops / PEAK_F32 >= bytes_ / PEAK_BYTES else "bytes",
+            "bound_by": bound_by(ops, bytes_),
             "library_ms": None,
         })
 
@@ -1882,10 +2329,16 @@ def main():
 
     phase("18 stereo run: train.sh and eval.sh")
     stereo_phase(dev, card, times)
+
+    phase("19 registry runs: the train CLI on an iPhone and a Blender scene")
+    reg_launches = registry_phase(dev, card, times, (train_state, data, cfg, opt_flow), trace)
+    for e in entries:
+        e["launches"] += reg_launches.get(e["name"], 0)
+    print(f"the kernels' launches in the two registry runs: {json.dumps(reg_launches)}")
     times["total_s"] = time.time() - t_start
     print(f"times: {json.dumps({k: round(v, 2) for k, v in times.items()})}")
 
-    phase("19 result")
+    phase("20 result")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -18,9 +18,13 @@ dynamic pool and the decoder), ``point_cloud_static.ply``, ``blce.pth``,
 and the debug grids ``fine_debug/iter_*.png``. The JAX package loads every
 one of them.
 
-With ``-s`` it reads a DyBluRF stereo scene (``data/stereo.py``) and seeds
-the clouds with the warm stage (``train/warm.py``) on the same device; the
-other dataset kinds raise until their loaders are ported.
+With ``-s`` it sniffs the scene's kind as the JAX CLI does. A directory
+with ``poses_bounds.npy`` is read as a DyBluRF stereo scene
+(``data/stereo.py``) and seeded by the warm stage (``train/warm.py``) on the
+same device; every other kind goes through ``data/scene.py::load_scene``
+(Blender, dycheck iPhone or HyperNeRF, COLMAP, PanopticSports) and is
+seeded from its SfM cloud or from its depth priors, 10 % of the seeds
+(at most ``dyn_npts``) in the dynamic pool.
 
 Where it differs from the JAX CLI: the random draws come from
 ``torch.Generator``s seeded with seed, seed+1, seed+2 and seed+3 (the
@@ -155,9 +159,9 @@ def main(argv=None, device=None):
             d_cols, d_times = pc.dyn_colors, pc.dyn_times
             traj_times = data.time
         else:
-            # registry families: seed from the SfM cloud when present, else
-            # unproject the depth priors (load_scene raises for the kinds
-            # whose loaders are not ported yet)
+            # registry families (blender/colmap/dycheck/dynerf/panoptic):
+            # seed from the SfM cloud when present, else unproject the depth
+            # priors
             from mobgs_tpu_torch.data.scene import load_scene
             data = load_scene(args.source_path, kind=kind)
             print(f"loaded [{kind}] {data.w2c.shape[0]} views "

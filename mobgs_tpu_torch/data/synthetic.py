@@ -62,9 +62,12 @@ def generate(width: int = 128, height: int = 72, num_frames: int = 12,
              blur_substeps: int = 5, exposure: float = 0.35,
              raster_cfg: RasterConfig = RasterConfig(tile_chunk=12,
                                                      max_per_tile=256),
-             device: str | torch.device | None = None):
+             device: str | torch.device | None = None,
+             return_alpha: bool = False):
     """Render a synthetic scene on ``device`` (the card unless ``"cpu"``).
-    Returns (SceneData, gt_dyn_traj [Nd,V,3])."""
+    Returns (SceneData, gt_dyn_traj [Nd,V,3]); with ``return_alpha`` also
+    the frames' alpha maps, (blurry [V,H,W], sharp [V,H,W]), for writers
+    of layouts that store RGBA frames."""
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     f = 0.9 * width
@@ -91,9 +94,12 @@ def generate(width: int = 128, height: int = 72, num_frames: int = 12,
     q_t, s_t, o_t, c_t, K_t = map(on_dev, (quats, scales, opac, colors, K))
     zero3 = torch.zeros(3, dtype=torch.float32, device=dev)
 
+    alphas_l = []
+
     def render_posed(means, w2c):
         out = rasterize(on_dev(means), q_t, s_t, o_t, c_t, on_dev(w2c), K_t,
                         width, height, background=zero3, config=raster_cfg)
+        alphas_l.append(out.alphas[0])
         return out.images[0], out.depths[0]
 
     def render_dyn(means_d, w2c):
@@ -158,6 +164,10 @@ def generate(width: int = 128, height: int = 72, num_frames: int = 12,
         masks=np.stack(masks), width=width, height=height,
         max_time=float(num_frames - 1),
         test_w2c=np.stack(test_w2cs), test_images=np.stack(test_imgs))
+    if return_alpha:
+        a_all = torch.stack(alphas_l).cpu().numpy()
+        return data, traj, (a_all[:nsub].reshape(num_frames, blur_substeps, height,
+                                                   width).mean(axis=1), a_all[nsub:])
     return data, traj
 
 

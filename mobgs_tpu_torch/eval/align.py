@@ -21,7 +21,12 @@ def align_test_poses(blce_state: B.BLCEState, train_w2c: torch.Tensor,
                      test_w2c: torch.Tensor, blur_feats: torch.Tensor,
                      num_warp: int = 9) -> torch.Tensor:
     """Align every test pose; tensors stacked over views [V, ...], on the
-    BLCE state's device. Returns [V, 4, 4]."""
+    BLCE state's device. Returns [V, 4, 4]. Test view i is paired with train
+    view i, so the two splits must hold as many views (the JAX package's
+    ``vmap`` over both raises ValueError otherwise, as this does)."""
+    if test_w2c.shape[0] != train_w2c.shape[0]:
+        raise ValueError(f"align_test_poses pairs test view i with train view i: "
+                         f"{train_w2c.shape[0]} train views, {test_w2c.shape[0]} test views")
     half = num_warp // 2
     out = []
     for idx in range(train_w2c.shape[0]):

@@ -4,8 +4,9 @@
 Each (camera, time) evaluation is one projection and one binning, with
 subset passes (dynamic-only, static-only) as opacity masks over the same
 tiles; optical flow is a 2D displacement composited as extra colour
-columns. The camera-shared static binning (``shared=``) comes with a later
-slice (``shared_static`` is off by default in the JAX package).
+columns. With ``shared=`` (``make_shared_view``) the static pool's
+projection and binning are made once per camera and reused by every pass
+at that camera, only the dynamic rows projected and merged per pass.
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ from mobgs_tpu_torch.data.cameras import Camera, cam_rays, pixel_grid
 from mobgs_tpu_torch.models import gaussians as G
 from mobgs_tpu_torch.models.sandwich import SandwichParams, apply_sandwich
 from mobgs_tpu_torch.ops import projection
-from mobgs_tpu_torch.ops.rasterize import RasterConfig, RasterOut, rasterize
+from mobgs_tpu_torch.ops.rasterize import (RasterConfig, RasterOut,
+                                           make_shared_static, rasterize)
 
 
 class SceneGeom(NamedTuple):
@@ -89,6 +91,19 @@ def assemble_static(stat: G.GaussianState):
     return s_means, s_quats, s_scales, s_opac, s_colors
 
 
+def make_shared_view(stat: G.GaussianState, cam: Camera,
+                     width: int, height: int,
+                     config: RasterConfig = RasterConfig()):
+    """Project and bin the static pool once for a camera
+    (``ops/rasterize.make_shared_static``), reused by the mid render and the
+    exposure-flow passes of the view, which differ only in the dynamic
+    rows. The returned SharedStatic is differentiable through its
+    projection."""
+    s_means, s_quats, s_scales, _, _ = assemble_static(stat)
+    return make_shared_static(s_means, s_quats, s_scales, cam.w2c, cam.K,
+                              width, height, config)
+
+
 def project_dyn2d(dyn: G.GaussianState, cam: Camera,
                   width: int, height: int, max_time: float = 1.0,
                   delta_exposure=None,
@@ -136,6 +151,7 @@ def render_view(stat: G.GaussianState, dyn: G.GaussianState,
                 want_depth: bool = True,
                 want_alpha: bool = True,
                 precomputed: tuple | None = None,
+                shared=None,
                 config: RasterConfig = RasterConfig()) -> RenderOut:
     """Render one view at one time (reference `render()`,
     ``render.py:157-248``).
@@ -150,6 +166,9 @@ def render_view(stat: G.GaussianState, dyn: G.GaussianState,
         columns; when off, depth/alpha come back as zeros and the
         background term is skipped.
       precomputed: (SceneGeom, ProjectedSplats) from assemble_project.
+      shared: SharedStatic from make_shared_view for this camera; only the
+        dynamic rows are projected and merged here (exclusive with
+        precomputed).
     """
     if precomputed is not None:
         geom, splats = precomputed
@@ -178,7 +197,7 @@ def render_view(stat: G.GaussianState, dyn: G.GaussianState,
         alpha_masks=torch.stack(sub_masks) if sub_masks else None,
         means2d_offset=means2d_offset,
         want_depth=want_depth, want_alpha=want_alpha,
-        splats=splats, config=config)
+        splats=splats, shared=shared, config=config)
 
     rays = cam_rays(cam, width, height)
     image = apply_sandwich(sandwich, out.images[0, ..., :9], rays)

@@ -42,8 +42,35 @@ class RasterOut(NamedTuple):
     tile_max: torch.Tensor | int = 0  # pre-clamp peak tile occupancy
 
 
+class SharedStatic(NamedTuple):
+    """Per-(camera, static subset) projection and binning, built once per
+    view by :func:`make_shared_static` and passed as ``rasterize(...,
+    shared=...)`` to every pass that renders the same camera with only the
+    rows past the static prefix changing (the train step's mid render and
+    exposure-flow passes: static Gaussians are never time-shifted)."""
+    splats: projection.ProjectedSplats  # static rows, differentiable
+    bins: tiles.StaticBins
+
+
 def _detached(splats: projection.ProjectedSplats) -> projection.ProjectedSplats:
     return projection.ProjectedSplats(*(x.detach() for x in splats))
+
+
+def make_shared_static(means, quats, scales, viewmat, K,
+                       width: int, height: int,
+                       config: RasterConfig = RasterConfig()) -> SharedStatic:
+    """Project and bin the static prefix once for a camera
+    (``rasterize.py:62-80``). The projection stays in the graph: every pass
+    that reuses it adds its gradient to the same tensors, so a view runs one
+    static projection backward instead of one a pass. The binning sees
+    detached splats, as in the unshared path."""
+    splats = projection.project(means, quats, scales, viewmat, K,
+                                width, height, eps2d=config.eps2d,
+                                near=config.near, sigma_cut=config.sigma_cut)
+    bins = tiles.bin_static(_detached(splats), width, height,
+                            tiles_per_gauss=config.tiles_per_gauss,
+                            max_per_tile=config.max_per_tile)
+    return SharedStatic(splats=splats, bins=bins)
 
 
 def rasterize(means: torch.Tensor, quats: torch.Tensor, scales: torch.Tensor,
@@ -57,6 +84,7 @@ def rasterize(means: torch.Tensor, quats: torch.Tensor, scales: torch.Tensor,
               want_depth: bool = True,
               want_alpha: bool = True,
               splats: projection.ProjectedSplats | None = None,
+              shared: SharedStatic | None = None,
               config: RasterConfig = RasterConfig()) -> RasterOut:
     """Render one camera view with one or more subset passes.
 
@@ -73,20 +101,41 @@ def rasterize(means: torch.Tensor, quats: torch.Tensor, scales: torch.Tensor,
       want_depth, want_alpha: composite the extended depth / weight
         columns; when off, depths / alphas come back as zeros.
       splats: precomputed ProjectedSplats for (means..., viewmat, K).
+      shared: SharedStatic from :func:`make_shared_static` for this camera:
+        only the rows past its static prefix are projected and binned here
+        (exclusive with ``splats``).
 
     Returns:
       RasterOut with a leading pass axis.
     """
-    if splats is None:
+    if shared is not None:
+        # the camera-shared static path (rasterize.py:125-142): the dynamic
+        # rows' projection after the shared static one, their records merged
+        # into the static bins
+        Ms = shared.splats.means2d.shape[0]
+        dyn_splats = projection.project(
+            means[Ms:], quats[Ms:], scales[Ms:], viewmat, K, width, height,
+            eps2d=config.eps2d, near=config.near, sigma_cut=config.sigma_cut)
+        splats = projection.ProjectedSplats(
+            *(torch.cat([a, b]) for a, b in zip(shared.splats, dyn_splats)))
+    elif splats is None:
         splats = projection.project(means, quats, scales, viewmat, K,
                                     width, height, eps2d=config.eps2d,
                                     near=config.near,
                                     sigma_cut=config.sigma_cut)
     if means2d_offset is not None:
         splats = splats._replace(means2d=splats.means2d + means2d_offset)
-    bins = tiles.bin_gaussians(_detached(splats), width, height,
-                               tiles_per_gauss=config.tiles_per_gauss,
-                               max_per_tile=config.max_per_tile)
+    if shared is not None:
+        # the dynamic records without the offset: it is zeros (a gradient
+        # tap), so the bins are those of the unshared path
+        bins = tiles.merge_dyn_bins(shared.bins, _detached(dyn_splats), Ms,
+                                    width, height,
+                                    tiles_per_gauss=config.tiles_per_gauss,
+                                    max_per_tile=config.max_per_tile)
+    else:
+        bins = tiles.bin_gaussians(_detached(splats), width, height,
+                                   tiles_per_gauss=config.tiles_per_gauss,
+                                   max_per_tile=config.max_per_tile)
 
     if pass_masks is None:
         pass_masks = torch.ones((1, means.shape[0]), dtype=means.dtype,

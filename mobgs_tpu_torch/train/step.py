@@ -115,7 +115,8 @@ def init_train_state(stat: G.GaussianState, dyn: G.GaussianState,
 def make_forward(opt_cfg, width: int, height: int, max_time: float,
                  num_warp: int = 9, raster_cfg: RasterConfig = RasterConfig(),
                  use_blce: bool = True, with_latents: bool = True,
-                 with_exposure_delta: bool = True):
+                 with_exposure_delta: bool = True,
+                 shared_static: bool = False):
     """The differentiated core of the step (``step.py:124-380``):
     ``forward(stat, dyn, sandwich, blce, offsets, batch)`` returns (total
     loss, aux).
@@ -128,6 +129,13 @@ def make_forward(opt_cfg, width: int, height: int, max_time: float,
       with_exposure_delta: False before ``start_warp_dynamic``: latent
         renders keep the warped poses but no exposure time shift (the flow
         passes keep their fixed shifts either way).
+      shared_static: with flow on, project and bin the static pool once per
+        view (``models/render.py::make_shared_view``) and reuse it in the
+        mid render and every exposure-flow pass, which then project and
+        merge only the dynamic rows; the flow colours' static rows are exact
+        zeros (static means never move). The same losses and gradients as
+        the unshared path. Off by default, as in the JAX package: it pays
+        only where the dynamic pool is a small fraction of the static one.
     """
     E = num_warp
     half = E // 2
@@ -146,7 +154,14 @@ def make_forward(opt_cfg, width: int, height: int, max_time: float,
             w2c, K, time = batch.w2c[b], batch.K[b], batch.time[b]
             cam = Camera(w2c=w2c, K=K, time=time)
             lat_imgs, f_imgs, f_alphas, f_e2m, flow2d_o = [], [], [], [], []
-            if compute_flow:
+            shared = None
+            if compute_flow and shared_static:
+                # the static pool: one projection and binning for this
+                # camera, reused by the mid render and every flow pass
+                shared = R.make_shared_view(stat, cam, width, height, raster_cfg)
+                mid_dyn2d = R.project_dyn2d(dyn, cam, width, height, max_time,
+                                            None, raster_cfg).detach()
+            elif compute_flow:
                 mid2d = R.project_combined(stat, dyn, cam, width, height,
                                            max_time, None, raster_cfg).detach()
             if with_latents:
@@ -172,16 +187,31 @@ def make_forward(opt_cfg, width: int, height: int, max_time: float,
                     # exposure-flow pass at the view's own camera and the
                     # exposure-time geometry (train.py:564-584): image, exp→mid
                     # flow columns and the dynamic alpha
-                    geom_f, splats_f = R.assemble_project(
-                        stat, dyn, cam, width, height, max_time, ratios[e],
-                        raster_cfg)
-                    flow2d_e = (mid2d - splats_f.means2d).detach()
-                    fout = R.render_view(
-                        stat, dyn, sandwich, cam, width, height, bg3, max_time,
-                        get_dynamic=True, extra_colors=flow2d_e,
-                        subset_alpha_only=True, want_depth=False,
-                        want_alpha=False, precomputed=(geom_f, splats_f),
-                        config=raster_cfg)
+                    if shared_static:
+                        # only the dynamic rows differ from the shared panel
+                        dyn2d_e = R.project_dyn2d(dyn, cam, width, height,
+                                                  max_time, ratios[e],
+                                                  raster_cfg).detach()
+                        flow2d_e = torch.cat([
+                            torch.zeros((stat.capacity, 2), dtype=torch.float32,
+                                        device=dev), mid_dyn2d - dyn2d_e])
+                        fout = R.render_view(
+                            stat, dyn, sandwich, cam, width, height, bg3,
+                            max_time, ratios[e], get_dynamic=True,
+                            extra_colors=flow2d_e, subset_alpha_only=True,
+                            want_depth=False, want_alpha=False, shared=shared,
+                            config=raster_cfg)
+                    else:
+                        geom_f, splats_f = R.assemble_project(
+                            stat, dyn, cam, width, height, max_time, ratios[e],
+                            raster_cfg)
+                        flow2d_e = (mid2d - splats_f.means2d).detach()
+                        fout = R.render_view(
+                            stat, dyn, sandwich, cam, width, height, bg3,
+                            max_time, get_dynamic=True, extra_colors=flow2d_e,
+                            subset_alpha_only=True, want_depth=False,
+                            want_alpha=False, precomputed=(geom_f, splats_f),
+                            config=raster_cfg)
                     tile_maxes.append(torch.as_tensor(fout.tile_max))
                     f_imgs.append(fout.image)
                     f_alphas.append(fout.d_alpha)
@@ -192,7 +222,8 @@ def make_forward(opt_cfg, width: int, height: int, max_time: float,
             if compute_flow:
                 # mid→exposure flow colours ride the mid render as 2·E extra
                 # columns, (x, y) per exposure; the mid exposure's are zero
-                flow2d = torch.stack(flow2d_o[:half] + [torch.zeros_like(mid2d)]
+                flow2d = torch.stack(flow2d_o[:half]
+                                     + [torch.zeros_like(flow2d_o[0])]
                                      + flow2d_o[half:])              # [E, N, 2]
                 mid_extra = (-flow2d).permute(1, 0, 2).reshape(-1, 2 * E)
             # mid render at the view's camera (train.py:441-469)
@@ -200,7 +231,8 @@ def make_forward(opt_cfg, width: int, height: int, max_time: float,
                                 max_time, None, get_static=False,
                                 get_dynamic=True, means2d_offset=offsets[b],
                                 extra_colors=mid_extra,
-                                subset_alpha_only=True, config=raster_cfg)
+                                subset_alpha_only=True, shared=shared,
+                                config=raster_cfg)
             tile_maxes.append(torch.as_tensor(mid.tile_max))
             if with_latents:
                 preds.append((torch.stack(lat_imgs).sum(0) + mid.image) / E
@@ -255,7 +287,8 @@ def make_train_step(opt_cfg, width: int, height: int, max_time: float,
                     spatial_lr_scale: float = 5.0, use_blce: bool = True,
                     with_latents: bool = True,
                     with_exposure_delta: bool = True,
-                    with_omega_freeze: bool = False):
+                    with_omega_freeze: bool = False,
+                    shared_static: bool = False):
     """Build the per-iteration update ``train_step(ts, batch) -> (ts,
     Metrics)`` (``step.py:383-474``). It runs on the device the state lives
     on, and reads the state's Parameters from ``ts`` on every call, so a
@@ -264,10 +297,11 @@ def make_train_step(opt_cfg, width: int, height: int, max_time: float,
     with_omega_freeze: densify mode 1 past iteration 8001
     (helper_train.py:191-194): the step takes two more arguments, [M] bool
     masks of the static and the dynamic pool, and applies
-    ``densify.apply_omega_freeze`` to the Gaussian gradients before Adam."""
+    ``densify.apply_omega_freeze`` to the Gaussian gradients before Adam.
+    shared_static: as in :func:`make_forward`."""
     forward = make_forward(opt_cfg, width, height, max_time, num_warp,
                            raster_cfg, use_blce, with_latents,
-                           with_exposure_delta)
+                           with_exposure_delta, shared_static)
 
     def train_step(ts: TrainState, batch: Batch, stat_omega_mask=None,
                    dyn_omega_mask=None):

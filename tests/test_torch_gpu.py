@@ -822,3 +822,166 @@ def test_eval_and_metrics_cli_on_card(cuda, tmp_path, monkeypatch):
     res = json.loads((tmp_path / "kernels" / "results.json").read_text())
     assert res["n_frames"] == 6
     assert all(np.isfinite(res[k]) for k in ("psnr", "ssim", "lpips_randfeat"))
+
+
+# the registry layouts' views: the dycheck iPhone 2x frame (360x480, 22.5
+# tile columns, an off-centre principal point and a skew entry, which the
+# projection does not read, as in the JAX package) and the D-NeRF Blender
+# frame (800x800, 2,500 tiles, several waves of blocks)
+REGISTRY_VIEWS = {
+    "iphone_360x480": (360, 480, np.array([[466.7, 0.75, 185.625], [0, 467.1, 227.75],
+                                           [0, 0, 1]], np.float32)),
+    "blender_800x800": (800, 800, np.array([[1111.1, 0, 400.0], [0, 1111.1, 400.0],
+                                            [0, 0, 1]], np.float32)),
+}
+
+
+def _registry_operands(view, C, sub, dev, n=20000, K=256):
+    """A seeded cloud projected into one registry view and binned at the
+    train CLI's default budgets: (ids, counts, rec, col, ntx, sub, W, H)."""
+    w, h, kmat = REGISTRY_VIEWS[view]
+    rng = np.random.default_rng(11)
+    means = rng.normal(size=(n, 3)).astype(np.float32) * np.float32([1.2, 1.6, 0.8])
+    means[:, 2] += 5.0
+    quats = rng.normal(size=(n, 4)).astype(np.float32)
+    scales = np.exp(rng.uniform(-4.0, -2.0, size=(n, 3))).astype(np.float32)
+    to = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    splats = projection.project(to(means), to(quats), to(scales), torch.eye(4, device=dev),
+                                to(kmat), w, h)
+    bins = tiles.bin_gaussians(splats, w, h, tiles_per_gauss=36, max_per_tile=K)
+    opac = to(rng.uniform(0.2, 0.95, size=n).astype(np.float32))
+    cols = [to(rng.uniform(size=(n, C)).astype(np.float32))]
+    if sub:
+        cols += [splats.depths[:, None], torch.ones(n, 1, device=dev)]
+    rec = cuda_raster.pack_records(splats, opac, opac * to((np.arange(n) % 5 == 0)
+                                                          .astype(np.float32)) if sub else None)
+    return (bins.gauss_ids.contiguous(), bins.counts.contiguous(), rec,
+            torch.cat(cols, 1).contiguous(), bins.n_tiles_x, sub, w, h)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("view", list(REGISTRY_VIEWS))
+@pytest.mark.parametrize("ce", ["ce9", "ce29_sub"])
+def test_registry_views_kernels_match_plain_on_card(view, ce, cuda):
+    """Both kernels at the registry runs' views against their plain
+    versions, the latent render's CE=9 and the flow-on mid render's CE=29
+    with the sub chain; the tile grid's pad (the 23rd tile column of a
+    360-wide view) is cropped from the image, and the tiles beyond the
+    first wave of blocks are as right as the rest."""
+    ids, cnt, rec, col, ntx, sub, w, h = _registry_operands(
+        view, 9 if ce == "ce9" else 27, ce != "ce9", cuda)
+    assert ids.shape[0] == ntx * -(-h // TILE_PX) and (ntx * TILE_PX == w) == (w % 16 == 0)
+    assert int((cnt > 0).sum()) > 0.5 * ids.shape[0], "most tiles are empty"
+    with torch.no_grad():
+        k = cuda_raster.composite_fwd(ids, cnt, rec, col, ntx, sub)
+        p = cuda_raster.composite_tiles_plain(ids, cnt, rec, col, ntx, sub)
+    for a, b in zip(k, p):
+        if b is not None:
+            assert float((a - b).abs().max()) <= ATOL * max(1.0, float(b.abs().max()))
+    assert cuda_raster._untile(k[0], ntx, ids.shape[0] // ntx, w, h).shape[:2] == (h, w)
+    rng = np.random.default_rng(3)
+    g = torch.as_tensor(rng.normal(size=k[0].shape).astype(np.float32), device=cuda)
+    g2 = (torch.as_tensor(rng.normal(size=k[1].shape).astype(np.float32), device=cuda)
+          if sub else None)
+    args = (ids, cnt, rec, col, k[0], k[1], g, g2, ntx, sub)
+    kb = cuda_raster.composite_bwd(*args)
+    pb = cuda_raster.composite_bwd_plain(*args)
+    torch.cuda.synchronize()
+    for j in range(7 if sub else 6):
+        assert float(pb[0][:, j].abs().max()) > 0, j
+        assert _rel_err(kb[0][:, j], pb[0][:, j]) <= BWD_REL, j
+    assert _rel_err(kb[1], pb[1]) <= BWD_REL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("view", list(REGISTRY_VIEWS))
+def test_registry_view_render_crops_the_tile_pad_on_card(view, cuda):
+    """``composite_tiles`` at a registry view through the kernel and the
+    plain route: [H, W] outputs, equal within the forward tolerances, and
+    a backward whose gradient is the same whatever the pad would hold."""
+    w, h, kmat = REGISTRY_VIEWS[view]
+    rng = np.random.default_rng(5)
+    n = 4000
+    means = rng.normal(size=(n, 3)).astype(np.float32) * np.float32([1.2, 1.6, 0.8])
+    means[:, 2] += 5.0
+    to = lambda x: torch.as_tensor(x, device=cuda)  # noqa: E731
+    m = to(means).requires_grad_(True)
+    quats = to(rng.normal(size=(n, 4)).astype(np.float32))
+    scales = to(np.exp(rng.uniform(-3.0, -1.5, size=(n, 3))).astype(np.float32))
+    opac = to(rng.uniform(0.2, 0.95, size=n).astype(np.float32))
+    colors = to(rng.uniform(size=(n, 9)).astype(np.float32))
+    from mobgs_tpu_torch.ops.rasterize import rasterize
+    grads = {}
+    for backend in ("cuda", "plain"):
+        out = rasterize(m, quats, scales, opac, colors, torch.eye(4, device=cuda), to(kmat),
+                        w, h, background=torch.full((9,), 0.3, device=cuda),
+                        config=RasterConfig(max_per_tile=256, backend=backend))
+        assert out.images.shape == (1, h, w, 9) and out.alphas.shape == (1, h, w)
+        (grads[backend],) = torch.autograd.grad((out.images ** 2).sum() + out.alphas.sum(), m)
+        grads[backend + "_img"] = out.images.detach()
+    assert float((grads["cuda_img"] - grads["plain_img"]).abs().max()) <= ATOL
+    assert _rel_err(grads["cuda"], grads["plain"]) <= STEP_REL
+
+
+@pytest.mark.gpu
+def test_merge_dyn_bins_matches_bin_gaussians_on_card(cuda):
+    """The camera-shared binning on the card: ``merge_dyn_bins`` of a
+    static and a dynamic cloud (the dynamic one piled in front, so tiles
+    overflow, and a quarter of it at the very place of a static splat, so
+    keys tie) bit-equal to ``bin_gaussians`` over the concatenation and to
+    the same merge on the CPU."""
+    rng = np.random.default_rng(0)
+    ms = rng.normal(size=(3000, 3)).astype(np.float32)
+    ms[:, 2] += 7.0
+    md = rng.normal(size=(1000, 3)).astype(np.float32) * np.float32([0.2, 0.2, 0.05])
+    md[:, 2] += 5.0
+    ms[:250] = md[:250]
+    q = rng.normal(size=(4000, 4)).astype(np.float32)
+    s = np.exp(rng.uniform(-3.5, -2, (4000, 3))).astype(np.float32)
+    kw = dict(tiles_per_gauss=9, max_per_tile=64)
+    res = {}
+    for dev in ("cpu", cuda):
+        to = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+        sp = projection.project(to(np.concatenate([ms, md])), to(q), to(s),
+                                torch.eye(4, device=dev), to(KMAT), W, H)
+        ps = projection.ProjectedSplats(*(x[:3000] for x in sp))
+        pd = projection.ProjectedSplats(*(x[3000:] for x in sp))
+        merged = tiles.merge_dyn_bins(tiles.bin_static(ps, W, H, **kw), pd, 3000, W, H, **kw)
+        ref = tiles.bin_gaussians(sp, W, H, **kw)
+        live = torch.arange(64, device=dev)[None] < ref.counts[:, None]
+        assert int(merged.max_count) == int(ref.max_count) > 64
+        assert torch.equal(merged.counts, ref.counts)
+        assert torch.equal(torch.where(live, merged.gauss_ids, -1),
+                           torch.where(live, ref.gauss_ids, -1))
+        res[str(dev)] = torch.where(live, merged.gauss_ids, -1).cpu()
+    assert torch.equal(res["cpu"], res[str(cuda)])
+
+
+@pytest.mark.gpu
+def test_shared_static_flow_step_matches_unshared_on_card(cuda):
+    """One flow-on step (B=2, E=3) through the kernels with
+    ``shared_static=True`` and with the default: the loss within 1e-5, each
+    gradient leaf within STEP_REL of its largest magnitude, and the same
+    kernel launches."""
+    ts, batch = _small_train_state(cuda)
+    opt = OptimizationParams(iterations=100, lambda_flow_loss=1e-2)
+    cfg = RasterConfig(max_per_tile=256)
+    leaves = [*G.split_diff(ts.stat)[0], *G.split_diff(ts.dyn)[0],
+              *S.sandwich_leaves(ts.sandwich), *ts.blce.params.leaves()]
+    res, launches = {}, {}
+    for shared in (True, False):
+        fwd = S.make_forward(opt, W, H, 1.0, 3, cfg, shared_static=shared)
+        off = torch.zeros((2, 320, 2), device=cuda, requires_grad=True)
+        before = dict(cuda_raster.launches)
+        total, aux = fwd(ts.stat, ts.dyn, ts.sandwich, ts.blce, off, batch)
+        grads = torch.autograd.grad(total, leaves + [off], allow_unused=True)
+        torch.cuda.synchronize()
+        launches[shared] = {k: cuda_raster.launches[k] - before[k] for k in before}
+        res[shared] = (float(total.detach()), grads)
+    assert launches[True] == launches[False]
+    np.testing.assert_allclose(res[True][0], res[False][0], rtol=1e-5)
+    for a, b in zip(res[True][1], res[False][1]):
+        if b is None or not b.any():
+            assert a is None or not a.any()
+            continue
+        assert _rel_err(a, b) <= STEP_REL
