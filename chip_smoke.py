@@ -3,8 +3,10 @@
 
 Drives the port's serving path, its flow-off and flow-on training steps, its
 exposure re-estimation, its host training loop, its train CLI, a user's
-whole run on a stereo scene (train, eval and metrics CLIs) and the train CLI
-on an iPhone and a Blender scene on one CUDA card at the seesaw protocol's full
+whole run on a stereo scene (train, eval and metrics CLIs), the train CLI
+on an iPhone and a Blender scene and the rest of the library (the gsplat
+shim through the kernels, the deformation field, PoseNet, the warps, the
+KNN constraint and knot pruning) on one CUDA card at the seesaw protocol's full
 width (512x288, 24 frames, 20k static + 10k dynamic seeds at x2 capacity =
 40k + 20k slots, tiles_per_gauss=9, max_per_tile=256; training at B=2 views
 and E=9 latent exposures), with a scene made from a seed and random
@@ -145,9 +147,25 @@ Sandwich and BLCE weights:
     leaves within STEP_REL), the merged bins and the forward images of the
     mid render and a flow pass bit-equal, and the device ms per step of both
     with their launches (equal);
-20. print the ``{"kernels": [...]}`` line (launches: the flow-off training
-    path's and the registry runs'), chip_smoke's wall seconds, then the card
-    line and the ``{"ok": true, ...}`` line last.
+20. the rest of the library on the card: the gsplat shim
+    (``compat.rasterization``) on the protocol scene at t = 0.5, C = 3
+    "RGB+ED" and C = 9 "RGB" (CE = 5 and 11), forward and backward through
+    the kernels against the plain route within IMG_ATOL, DEPTH_RTOL and
+    BWD_REL per gradient column, its launches counted from 0 (one forward and
+    one backward an instance) and each instance timed beside its bound;
+    ``fully_fused_projection`` bit-equal to ``project``; the deformation
+    field at ModelHiddenParams' widths (the 143 MB net of ``deformation.pth``)
+    over the 60,000 slots, forward and backward with the regulation loss,
+    against the CPU at three frame times and timed at all 24; PoseNet at 24
+    views with a 512x288 depth; ``direct_warp_rt1_rt2`` (64 buckets),
+    ``occ_rt1_rt2`` (128) and ``warp_pc2flow`` at 512x288; ``ball_query``
+    (indices equal) and ``knn_constraint_loss`` on 20,000 points; and
+    ``onedown_control_pts`` on the 20,000 dynamic splines and 24 views, and
+    again with every other spline wiggled so that both branches run
+    (decisions equal), each card against CPU and timed;
+21. print the ``{"kernels": [...]}`` line (launches: the flow-off training
+    path's, the registry runs' and the shim's), chip_smoke's wall seconds,
+    then the card line and the ``{"ok": true, ...}`` line last.
 
 Every failure raises and exits non-zero. Without a CUDA card it exits 2
 and prints no result. Run: ``python3 chip_smoke.py``.
@@ -247,6 +265,24 @@ REG_FRAMES, REG_ITERS = 24, 10
 IPHONE_W, IPHONE_H, IPHONE_SKEW = 360, 480, 1.5
 BLENDER_W = 800
 SHARED_WARM, SHARED_STEPS = 3, 10
+# the rest of the library (phase 20): the gsplat shim at C = 3 "RGB+ED" and
+# C = 9 "RGB" (composites of CE = 5 and 11) on the protocol scene at t = 0.5;
+# the deformation field at ModelHiddenParams' widths over the 60,000 slots at
+# the 24 frame times, held against the CPU at LIB_CPU_TIMES of them (the CPU
+# takes ~3 s a time); the warps' buckets; knot pruning's threshold (the
+# reference's error_threshold in its own prune test)
+SHIM_MODES = ((3, "RGB+ED"), (9, "RGB"))
+LIB_CPU_TIMES = (0, 11, 23)
+LIB_FWD_REL = 1e-5
+LIB_GRAD_REL = 1e-4
+# the warps sample at pixel coordinates up to 511, whose float32 spacing is
+# 2^-15 (3.1e-5): a coordinate a rounding apart on the two devices moves a
+# bilinear weight by that much, and the one-hot disparity volume jumps by 1
+# between taps
+WARP_REL = 1e-4
+WARP_BUCKETS = {"direct_warp_rt1_rt2": 64, "occ_rt1_rt2": 128}
+KNN_POINTS, KNN_K = 20_000, 20
+ONEDOWN_THR = 0.05
 # flow columns are displacements in pixels: their kernel-vs-plain difference
 # is held at IMG_ATOL times their largest magnitude (at least 1 pixel)
 # Published H100 SXM peaks (NVIDIA data sheet, at 700 W): float32 outside
@@ -1246,6 +1282,343 @@ def registry_phase(dev, card, times, protocol, trace):
         require(images_equal, f"shared static {name}: forward images differ")
         require(steps[True][2] == steps[False][2], f"shared static {name}: launches differ")
     return launches_total
+
+
+def rel_err(a, b):
+    """Max abs difference over the reference's largest magnitude."""
+    return float((a.float() - b.float()).abs().max()) / max(float(b.float().abs().max()), 1e-30)
+
+
+def library_phase(dev, card, times, protocol):
+    """Phase 20: the rest of the library on the card. The gsplat shim
+    (``compat.rasterization``) at protocol width through the forward and
+    backward kernels against the plain route, its launches counted from 0 and
+    its instances timed beside their bounds; ``fully_fused_projection``
+    bit-equal to ``project``; the deformation field at ModelHiddenParams'
+    widths, PoseNet, the depth-volume warps, the KNN constraint and knot
+    pruning on the card against the same functions on the CPU, each timed.
+    Returns the shim's kernel launches by kernel name."""
+    from mobgs_tpu_torch import compat
+    from mobgs_tpu_torch.config import ModelHiddenParams
+    from mobgs_tpu_torch.core import spline
+    from mobgs_tpu_torch.models import deformation as DF
+    from mobgs_tpu_torch.models import posenet as PN
+    from mobgs_tpu_torch.models import render as R
+    from mobgs_tpu_torch.ops import cuda_raster, projection
+    from mobgs_tpu_torch.train import losses_extra as LX
+
+    stat, dyn, data, cfg = protocol
+    cpu = torch.device("cpu")
+    t_phase = time.time()
+    rng = np.random.default_rng(20)
+
+    def on(x, d=dev):
+        return torch.as_tensor(np.asarray(x, np.float32), device=d)
+
+    # -- the gsplat shim, the phase's path through the kernels
+    with torch.no_grad():
+        geom = R.assemble(stat, dyn, 0.5, data.max_time)
+    viewmats, Ks = on(data.w2c[:1]), on(data.K[:1])
+    shim_launches, operands = {}, {}
+
+    def recording_plain(ids, counts, rec, col, ntx, sub=False):
+        operands[col.shape[1]] = (ids, counts, rec.detach(), col.detach(), ntx)
+        return real_plain(ids, counts, rec, col, ntx, sub)
+
+    real_plain = cuda_raster.composite_plain
+    for C, mode in SHIM_MODES:
+        ce = C + 2
+        host = [geom.means, geom.quats, geom.scales, geom.opacity, geom.colors[:, :C]]
+        g_img = on(rng.normal(size=(1, H, W, C + (mode == "RGB+ED"))))
+        g_alpha = on(rng.normal(size=(1, H, W, 1)))
+        bg = torch.linspace(0.1, 0.4, C, device=dev)[None]
+        res = {}
+        for backend in ("cuda", "plain"):
+            leaves = [x.detach().clone().requires_grad_(True) for x in host]
+            cuda_raster.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            with replaced((cuda_raster, "composite_plain", recording_plain)):
+                img, alpha, info = compat.rasterization(
+                    *leaves, viewmats, Ks, W, H, backgrounds=bg, render_mode=mode,
+                    config=cfg._replace(backend=backend))
+                if mode == "RGB+ED":
+                    img = torch.cat([img[..., :-1], torch.where(
+                        alpha > 1e-3, img[..., -1:], torch.zeros_like(alpha))], -1)
+                grads = torch.autograd.grad(torch.sum(img * g_img)
+                                            + torch.sum(alpha * g_alpha), leaves)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            res[backend] = (img.detach(), alpha.detach(), grads,
+                            dict(cuda_raster.instance_launches), wall)
+        (ik, ak, gk, lk, wk), (ip, ap, gp, lp, _) = res["cuda"], res["plain"]
+        require(lk == {f"raster_fwd CE={ce}": 1, f"raster_bwd CE={ce}": 1},
+                f"shim C={C} {mode}: launches {lk}")
+        require(not lp, f"shim C={C} plain route launched {lp}")
+        for name, n in lk.items():
+            key = name.split()[0]
+            shim_launches[key] = shim_launches.get(key, 0) + n
+        m = ap[..., 0] > 1e-3
+        errs = {"image": float((ik[..., :C] - ip[..., :C]).abs().max()),
+                "alpha": float((ak - ap).abs().max())}
+        if mode == "RGB+ED":
+            errs["depth_rel"] = float(((ik[..., -1] - ip[..., -1]).abs()
+                                       / ip[..., -1].abs().clamp(min=1e-12))[m].max())
+        errs["grad_rel"] = max(rel_err(a[:, j], b[:, j]) for a, b in (
+            (a.reshape(a.shape[0], -1), b.reshape(b.shape[0], -1)) for a, b in zip(gk, gp))
+            for j in range(b.shape[1]) if b[:, j].any())
+        print(f"shim C={C} {mode} (CE={ce}) kernels vs plain: {json.dumps(errs)}; "
+              f"launches {json.dumps(lk)}; {1e3 * wk:.2f} ms forward + backward ({card})")
+        require(errs["image"] <= IMG_ATOL and errs["alpha"] <= IMG_ATOL
+                and errs.get("depth_rel", 0.0) <= DEPTH_RTOL and errs["grad_rel"] <= BWD_REL,
+                f"shim C={C} {mode}: {errs}")
+        require(all(torch.isfinite(x).all() for x in (ik, ak, *gk)), f"shim C={C} not finite")
+        require(info["means2d"].shape == (1, geom.means.shape[0], 2), "shim info")
+    times["lib_shim_s"] = time.time() - t_phase
+
+    ffp = compat.fully_fused_projection(geom.means, None, geom.quats, geom.scales,
+                                        viewmats, Ks, W, H, config=cfg)
+    ref = projection.project(geom.means, geom.quats, geom.scales, viewmats[0], Ks[0], W, H,
+                             eps2d=cfg.eps2d, near=cfg.near, sigma_cut=cfg.sigma_cut)
+    require(ffp[4] is None and all(torch.equal(a[0], b) for a, b in zip(
+        ffp[:4], (ref.radii, ref.means2d, ref.depths, ref.conics))),
+        "fully_fused_projection is not project")
+
+    # the shim's instances timed beside their bounds, on its own operands
+    for ce, (ids, cnt, rec, col, ntx) in sorted(operands.items()):
+        with torch.no_grad():
+            ms = cuda_ms(lambda: cuda_raster.composite_fwd(ids, cnt, rec, col, ntx), 50)
+            plain_ms = cuda_ms(lambda: cuda_raster.composite_tiles_plain(
+                ids, cnt, rec, col, ntx, False), 5)
+            out = cuda_raster.composite_fwd(ids, cnt, rec, col, ntx)[0]
+        ops, bytes_, pairs, _ = raster_fwd_cost(ids, cnt, rec, col, False, ntx)
+        print(f"shim raster_fwd CE={ce}: {ms:.4f} ms kernel, {plain_ms:.3f} ms plain, bound "
+              f"{bound(ops, bytes_):.4f} ms by {bound_by(ops, bytes_)} ({ops / 1e9:.3f} GOP, "
+              f"{bytes_ / 1e6:.2f} MB, {pairs} pairs), launches 1 ({card})")
+        g = on(rng.normal(size=tuple(out.shape)))
+        ms = cuda_ms(lambda: cuda_raster.composite_bwd(ids, cnt, rec, col, out, None, g, None,
+                                                       ntx, False), 50)
+        plain_ms = cuda_ms(lambda: cuda_raster.composite_bwd_plain(
+            ids, cnt, rec, col, out, None, g, None, ntx, False), 5)
+        ops, bytes_, pairs, _ = raster_bwd_cost(ids, cnt, rec, col, False, ntx)
+        print(f"shim raster_bwd CE={ce}: {ms:.4f} ms kernel, {plain_ms:.3f} ms plain, bound "
+              f"{bound(ops, bytes_):.4f} ms by {bound_by(ops, bytes_)} ({ops / 1e9:.3f} GOP, "
+              f"{bytes_ / 1e6:.2f} MB), launches 1 ({card})")
+    del operands
+
+    # -- the deformation field at ModelHiddenParams' widths
+    t0 = time.time()
+    hidden = ModelHiddenParams()
+    params = DF.init_deformation(torch.Generator(device=dev).manual_seed(0), hidden, device=dev)
+    xyz, scl, rot = (torch.cat([getattr(stat, f), getattr(dyn, f)]).detach()
+                     for f in ("xyz", "scaling", "rotation"))
+    N = xyz.shape[0]
+    cots = [on(rng.normal(size=(N, c))) for c in (3, 3, 4)]
+    weights = (hidden.time_smoothness_weight, hidden.l1_time_planes, hidden.plane_tv_weight)
+
+    def deform_run(d, frame_ids):
+        """Outputs at the given frames and the gradients of their cotangent
+        sums plus the regulation loss, one backward a frame."""
+        leaves = [x.detach().to(d).requires_grad_(True) for x in _tensors(params)]
+        p = _rebuild(params, iter(leaves))
+        ins = [x.to(d) for x in (xyz, scl, rot)]
+        outs = []
+        for i in frame_ids:
+            o = DF.apply_deformation(p, *ins, float(data.time[i]))
+            sum(torch.sum(a * c.to(d)) for a, c in zip(o, cots)).backward()
+            outs.append([a.detach() for a in o])
+        reg = DF.regulation_loss(p, *weights)
+        reg.backward()
+        return outs, reg.detach(), [x.grad for x in leaves]
+
+    outs_k, reg_k, grads_k = deform_run(dev, LIB_CPU_TIMES)
+    outs_c, reg_c, grads_c = deform_run(cpu, LIB_CPU_TIMES)
+    fwd = max(rel_err(a.cpu(), b) for o_k, o_c in zip(outs_k, outs_c)
+              for a, b in zip(o_k, o_c))
+    reg_rel = abs(float(reg_k) - float(reg_c)) / abs(float(reg_c))
+    grad = max(rel_err(a.cpu(), b) for a, b in zip(grads_k, grads_c)
+               if b is not None and b.any())
+    require(all(a is None or not a.any() for a, b in zip(grads_k, grads_c)
+                if b is None or not b.any()), "deformation: a gradient on the card only")
+    print(f"deformation field ({sum(x.numel() for x in _tensors(params)) * 4 / 1e6:.1f} MB, "
+          f"{N} slots) card vs CPU at frames {LIB_CPU_TIMES}: outputs {fwd:.3g}, "
+          f"regulation {reg_rel:.3g}, gradients {grad:.3g} of each leaf's magnitude")
+    require(fwd <= LIB_FWD_REL and reg_rel <= LIB_FWD_REL and grad <= LIB_GRAD_REL,
+            f"deformation card vs CPU: {fwd}, {reg_rel}, {grad}")
+    with torch.no_grad():
+        ms_fwd = cuda_ms(lambda: [DF.apply_deformation(params, xyz, scl, rot, float(tv))
+                                  for tv in data.time], 3) / len(data.time)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    deform_run(dev, range(len(data.time)))
+    torch.cuda.synchronize()
+    ms_step = (time.time() - t1) * 1e3
+    print(f"apply_deformation: {ms_fwd:.3f} ms a call forward (CUDA events); the "
+          f"{len(data.time)} frames "
+          f"forward and backward with the regulation loss {ms_step:.1f} ms (host clock) "
+          f"({card})")
+    times["lib_deformation_s"] = time.time() - t0
+    del params, outs_k, outs_c, grads_k, grads_c
+
+    # -- PoseNet at the 24 views with a 512x288 depth
+    gen = torch.Generator(device=dev).manual_seed(1)
+    pn = PN.init_posenet(gen, FRAMES, H, W, data.max_time, device=dev)
+    pn = pn._replace(timenet_out_w=0.01 * torch.randn(pn.timenet_out_w.shape, generator=gen,
+                                                      device=dev))
+    times_sel, depth = on(data.time), on(data.depths.reshape(FRAMES, -1))
+    pcot = [on(rng.normal(size=s)) for s in ((FRAMES, 3, 3), (FRAMES, 3), (FRAMES, 1, H, W))]
+
+    def pose_run(d):
+        leaves = [x.detach().to(d).requires_grad_(True) for x in _tensors(pn)]
+        outs = PN.posenet_forward(_rebuild(pn, iter(leaves)), times_sel.to(d), depth.to(d))
+        loss = sum(torch.sum(a * c.to(d)) for a, c in zip(outs, pcot))
+        return outs, torch.autograd.grad(loss, leaves, allow_unused=True)
+
+    (outs_k, grads_k), (outs_c, grads_c) = pose_run(dev), pose_run(cpu)
+    fwd = max(rel_err(a.detach().cpu(), b.detach()) for a, b in zip(outs_k, outs_c))
+    grad = max(rel_err(a.cpu(), b) for a, b in zip(grads_k, grads_c)
+               if b is not None and b.any())
+    ms = cuda_ms(lambda: PN.posenet_forward(pn, times_sel, depth), 20)
+    print(f"PoseNet ({FRAMES} views, {W}x{H} depth) card vs CPU: outputs {fwd:.3g}, "
+          f"gradients {grad:.3g}; {ms:.3f} ms forward ({card})")
+    require(fwd <= LIB_FWD_REL and grad <= LIB_GRAD_REL, f"PoseNet card vs CPU {fwd}, {grad}")
+
+    # -- the depth-volume warps and the KNN constraint
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    K_np = np.asarray(data.K[0], np.float32)
+    w2c1, w2c2 = data.w2c[0], data.w2c[1]
+    img = np.ascontiguousarray(np.asarray(data.images[0], np.float32).transpose(2, 0, 1))
+    depth0 = np.asarray(data.depths[0], np.float32)
+    # the first view's pixels back-projected at its depth, in world space
+    j, i = np.meshgrid(np.arange(W, dtype=np.float32), np.arange(H, dtype=np.float32))
+    cam_pts = (np.linalg.inv(K_np) @ np.stack([j.ravel(), i.ravel(), np.ones(H * W)])
+               * depth0.ravel())
+    pc2 = (np.linalg.inv(w2c1) @ np.concatenate([cam_pts, np.ones((1, H * W))]))[:3]
+    pc2 = pc2.reshape(3, H, W).astype(np.float32)
+
+    def warps(d):
+        a = [on(x, d) for x in (img, depth0, w2c1, w2c2, K_np, np.linalg.inv(K_np))]
+        out = {}
+        fw, occ, grid = LX.direct_warp_rt1_rt2(*a, ret_grid=True,
+                                               no_bucket=WARP_BUCKETS["direct_warp_rt1_rt2"])
+        out["direct_warp_rt1_rt2"] = ((fw, occ), grid)
+        n = WARP_BUCKETS["occ_rt1_rt2"]
+        out["occ_rt1_rt2"] = ((LX.occ_rt1_rt2(*a[1:], no_bucket=n),),
+                              LX._disparity_volume(a[1], n, False, *a[2:], "zeros")[1])
+        pw, pgrid = LX.warp_pc2flow(a[0], on(pc2, d), a[3], a[4], ret_grid=True)
+        out["warp_pc2flow"] = ((pw,), pgrid[None])
+        return out
+
+    wk, wc = warps(dev), warps(cpu)
+    for name, ((outs_k, grid_k), (outs_c, grid_c)) in ((n, (wk[n], wc[n])) for n in wk):
+        # the reference's out-of-range 2.0 is a jump: a coordinate within
+        # rounding of the range's edge may take it on one device only
+        flip = ((grid_k.cpu() == 2.0) != (grid_c == 2.0)).any(-1).any(0)
+        errs = [float(((a.cpu() - b).abs() * ~flip).max()) / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(outs_k, outs_c)]
+        print(f"{name} ({W}x{H}) card vs CPU: {max(errs):.3g} of the output's magnitude, "
+              f"{int(flip.sum())} pixels with an out-of-range flip excluded ({card})")
+        require(max(errs) <= WARP_REL and int(flip.sum()) <= H * W // 1000,
+                f"{name} card vs CPU {errs}, {int(flip.sum())} flips")
+    warp_ms = {
+        "direct_warp_rt1_rt2": cuda_ms(lambda: LX.direct_warp_rt1_rt2(
+            *(on(x) for x in (img, depth0, w2c1, w2c2, K_np, np.linalg.inv(K_np)))), 5),
+        "occ_rt1_rt2": cuda_ms(lambda: LX.occ_rt1_rt2(
+            *(on(x) for x in (depth0, w2c1, w2c2, K_np, np.linalg.inv(K_np)))), 5),
+        "warp_pc2flow": cuda_ms(lambda: LX.warp_pc2flow(on(img), on(pc2), on(w2c2), on(K_np)),
+                                5)}
+    del wk, wc
+
+    # the KNN constraint on 20,000 static seeds moved by a seeded 1e-3 jitter;
+    # the radius holds ~KNN_K points of a uniform cloud of their extent
+    canno = stat.xyz.detach()[stat.live][:KNN_POINTS].cpu().numpy()
+    extent = float((canno.max(0) - canno.min(0)).max())
+    radius = extent * (KNN_K / KNN_POINTS) ** (1 / 3) / 2
+    moved = (canno + rng.normal(size=canno.shape) * 1e-3 * extent).astype(np.float32)[None]
+    bq_k = LX.ball_query(on(moved), on(moved), k=KNN_K, radius=radius)
+    bq_c = LX.ball_query(on(moved, cpu), on(moved, cpu), k=KNN_K, radius=radius)
+    hits = float((bq_c[1] >= 0).sum(-1).float().mean())
+    require(torch.equal(bq_k[1].cpu(), bq_c[1]), "ball_query indices card vs CPU")
+    knn = {}
+    for d in (dev, cpu):
+        x = on(moved, d).requires_grad_(True)
+        loss = LX.knn_constraint_loss(x, on(canno, d), radius, KNN_K)
+        knn[str(d)] = (float(loss.detach()), torch.autograd.grad(loss, x)[0].cpu())
+    (lk_, gk_), (lc_, gc_) = knn[str(dev)], knn["cpu"]
+    knn_rel, knn_grad = abs(lk_ - lc_) / abs(lc_), rel_err(gk_, gc_)
+    ms_bq = cuda_ms(lambda: LX.ball_query(on(moved), on(moved), k=KNN_K, radius=radius), 3)
+    ms_knn = cuda_ms(lambda: LX.knn_constraint_loss(on(moved), on(canno), radius, KNN_K), 3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"ball_query ({canno.shape[0]} points, k={KNN_K}, radius {radius:.4g}, {hits:.1f} hits "
+          f"a row on the mean) indices equal card vs CPU; knn_constraint_loss {lk_:.6g}: "
+          f"loss {knn_rel:.3g}, gradient {knn_grad:.3g} of its magnitude ({card})")
+    require(knn_rel <= LIB_FWD_REL and knn_grad <= LIB_GRAD_REL and torch.isfinite(gk_).all(),
+            f"knn_constraint_loss card vs CPU {knn_rel}, {knn_grad}")
+    print(f"ms: {json.dumps({**{k: round(v, 3) for k, v in warp_ms.items()}, 'ball_query': round(ms_bq, 3), 'knn_constraint_loss': round(ms_knn, 3)})}; "
+          f"peak memory of the warps and the KNN constraint {peak:.3f} GiB ({card})")
+    times["lib_warps_knn_s"] = time.time() - t0
+
+    # -- knot pruning on the protocol's dynamic splines
+    t0 = time.time()
+    ctrl, ncur = dyn.control_xyz.detach(), dyn.control_num
+    focal = float(data.K[0][0, 0])
+
+    def prune(control):
+        """(control', n', accepted, the refit's errors) on the card and on the
+        CPU, as CPU tensors."""
+        res = []
+        for d in (dev, cpu):
+            args = (control.to(d), ncur.to(d), on(data.w2c, d), on(data.time, d), focal, W, H)
+            new_c, new_n, acc = spline.onedown_control_pts(*args, ONEDOWN_THR)
+            err = spline.compute_prune_error(
+                args[0], args[1], spline.refit_spline_pruned(args[0], args[1], ctrl.shape[1]),
+                torch.clamp(args[1] - 1, min=4), *args[2:])
+            res.append((new_c.cpu(), new_n.cpu(), int(acc), err.cpu()))
+        (ck, nk, ak, _), (cc, nc, ac, ec) = res
+        margin = float(((ec - ONEDOWN_THR).abs() / ONEDOWN_THR).min())
+        return ak, ac, torch.equal(nk, nc), rel_err(ck, cc), margin, ec
+
+    ak, ac, same_n, c_err, margin, ec = prune(ctrl)
+    ms = cuda_ms(lambda: spline.onedown_control_pts(ctrl, ncur, on(data.w2c), on(data.time),
+                                                    focal, W, H, ONEDOWN_THR), 5)
+    print(f"onedown_control_pts ({ctrl.shape[0]} splines, K={ctrl.shape[1]}, {FRAMES} views): "
+          f"{ak} accepted on the card, {ac} on the CPU at the reference's {ONEDOWN_THR} px "
+          f"(largest error {float(ec.max()):.4g} px); control points {c_err:.3g} of "
+          f"their magnitude; smallest |err - thr| / thr {margin:.3g}; {ms:.3f} ms ({card})")
+    require(ak == ac and same_n and c_err <= 1e-4, "onedown_control_pts card vs CPU")
+    # both branches: the protocol's splines are smooth, so every refit's error
+    # is float32 rounding and all accept; every other spline gets a seeded
+    # wiggle of one unit (1 cm) on its live knots, which removing a knot
+    # cannot follow
+    live_knots = (torch.arange(ctrl.shape[1], device=dev)[None, :] < ncur[:, None].long())
+    wiggle = on(rng.normal(size=tuple(ctrl.shape))) * live_knots[..., None]
+    wiggle[0::2] = 0.0
+    ak, ac, same_n, c_err, margin, _ = prune(ctrl + wiggle)
+    print(f"onedown_control_pts with every other spline wiggled: {ak} accepted on the card, "
+          f"{ac} on the CPU of {ctrl.shape[0]}; smallest |err - thr| / thr {margin:.3g}; "
+          f"control points {c_err:.3g} of their magnitude ({card})")
+    require(ak == ac and same_n and c_err <= 1e-4,
+            "onedown_control_pts on the wiggled splines, card vs CPU")
+    require(0 < ak < ctrl.shape[0], "onedown_control_pts: one branch only")
+    times["lib_prune_s"] = time.time() - t0
+    times["lib_phase_s"] = time.time() - t_phase
+    return shim_launches
+
+
+def _tensors(tree):
+    """The tensors of a nested tuple / NamedTuple, in order."""
+    if isinstance(tree, tuple):
+        return [y for v in tree for y in _tensors(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+def _rebuild(tree, it):
+    """``tree`` with its tensors replaced, in order, from ``it``."""
+    if isinstance(tree, tuple):
+        vals = [_rebuild(v, it) for v in tree]
+        return type(tree)(*vals) if hasattr(tree, "_fields") else tuple(vals)
+    return next(it) if isinstance(tree, torch.Tensor) else tree
 
 
 def main():
@@ -2335,10 +2708,16 @@ def main():
     for e in entries:
         e["launches"] += reg_launches.get(e["name"], 0)
     print(f"the kernels' launches in the two registry runs: {json.dumps(reg_launches)}")
+
+    phase("20 the rest of the library on the card")
+    lib_launches = library_phase(dev, card, times, (stat, dyn, data, cfg))
+    for e in entries:
+        e["launches"] += lib_launches.get(e["name"], 0)
+    print(f"the kernels' launches through the gsplat shim: {json.dumps(lib_launches)}")
     times["total_s"] = time.time() - t_start
     print(f"times: {json.dumps({k: round(v, 2) for k, v in times.items()})}")
 
-    phase("20 result")
+    phase("21 result")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

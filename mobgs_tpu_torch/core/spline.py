@@ -1,13 +1,14 @@
-"""Cubic-Hermite spline engine (port of ``mobgs_tpu/core/spline.py:29-178``).
+"""Cubic-Hermite spline engine (port of ``mobgs_tpu/core/spline.py``).
 
 Per-point splines over a fixed maximum knot count ``K`` with a live knot
-count ``n`` per point, one-sided boundary derivatives, and the shared
-design-matrix least-squares fit used at init. The prune/refit functions
-of the JAX module come with the training slice.
+count ``n`` per point, one-sided boundary derivatives, the shared
+design-matrix least-squares fit used at init, and the knot-prune
+controller (refit with one knot fewer, gated on the reprojection error).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -127,3 +128,137 @@ def fit_spline_shared(traj: torch.Tensor, times: torch.Tensor, n_pts: int,
                           dtype=sol.dtype, device=sol.device)
         sol = torch.cat([sol, pad], dim=1)
     return sol
+
+
+def design_row_np(t: float, n_pts: int, K: int) -> np.ndarray:
+    """One row of the Hermite design matrix (numpy, host-side helper)."""
+    row = np.zeros(K, np.float64)
+    ts = t * (n_pts - 1)
+    idx = int(np.clip(np.floor(ts), 0, n_pts - 2))
+    left = max(idx - 1, 0)
+    right = min(idx + 1, n_pts - 1)
+    rright = min(idx + 2, n_pts - 1)
+    tf = ts - idx
+    h00 = (1 + 2 * tf) * (1 - tf) ** 2
+    h10 = tf * (1 - tf) ** 2
+    h01 = tf * tf * (3 - 2 * tf)
+    h11 = tf * tf * (tf - 1)
+    row[idx] += h00
+    row[right] += h01
+    if left == idx:  # boundary: m0 = p2 - p1
+        row[right] += h10
+        row[idx] -= h10
+    else:  # m0 = (p2 - p0)/2
+        row[right] += h10 / 2
+        row[left] -= h10 / 2
+    if rright == right:  # boundary: m1 = p2 - p1
+        row[right] += h11
+        row[idx] -= h11
+    else:  # m1 = (p3 - p1)/2
+        row[rright] += h11 / 2
+        row[idx] -= h11 / 2
+    return row
+
+
+def project_points(pts: torch.Tensor, w2c: torch.Tensor,
+                   K_mat: torch.Tensor) -> torch.Tensor:
+    """World points -> pixel coordinates (the reference's ``pts2pixel``:
+    the w2c transform, then K, with its 1e-7 z-guard)."""
+    cam = pts @ w2c[:3, :3].T + w2c[:3, 3]
+    pix = cam @ K_mat.T
+    return pix[..., :2] / (pix[..., 2:3] + 1e-7)
+
+
+def compute_prune_error(control: torch.Tensor, n_cur: torch.Tensor,
+                        new_control: torch.Tensor, n_new: torch.Tensor,
+                        view_w2c: torch.Tensor, view_times: torch.Tensor,
+                        focal: float, width: int, height: int,
+                        pos_scale: float = 1e-2) -> torch.Tensor:
+    """Mean reprojection error of the pruned spline against the current one
+    (``spline.py:191-227``): over the INTERIOR views (the reference skips
+    the first and last), both splines at the view's time, times 1e-2,
+    projected through K = [[f,0,W/2],[0,f,H/2],[0,0,1]], the per-point 2-D
+    L2 distances averaged. control/new_control ``[P, K, 3]``, n_cur/n_new
+    ``[P]``, view_w2c ``[V, 4, 4]`` (V ≥ 3), view_times ``[V]``; returns
+    ``[P]``."""
+    K_mat = torch.tensor([[focal, 0.0, width / 2.0],
+                          [0.0, focal, height / 2.0],
+                          [0.0, 0.0, 1.0]], dtype=control.dtype,
+                         device=control.device)
+    V = view_w2c.shape[0]
+    errs = []
+    for v in range(1, V - 1):  # interior views only
+        t = view_times[v]
+        old3d = eval_spline(control, t, n_cur) * pos_scale
+        new3d = eval_spline(new_control, t, n_new) * pos_scale
+        old2d = project_points(old3d, view_w2c[v], K_mat)
+        new2d = project_points(new3d, view_w2c[v], K_mat)
+        errs.append(torch.linalg.norm(old2d - new2d, dim=-1))
+    return torch.stack(errs, 0).mean(0)
+
+
+def onedown_control_pts(control: torch.Tensor, n_cur: torch.Tensor,
+                        view_w2c: torch.Tensor, view_times: torch.Tensor,
+                        focal: float, width: int, height: int,
+                        error_threshold: float):
+    """Knot-prune controller (``spline.py:230-252``): refit every spline
+    with one control point fewer and keep the refit where the reprojection
+    error stays under ``error_threshold``. Returns (control', n_cur',
+    n_accepted). Points at the 4-knot floor target n_new = 4, so an
+    accepted swap re-solves them at the same count. A refit that comes out
+    non-finite has a NaN error and is rejected (``NaN <= thr`` is false):
+    the point keeps its knots."""
+    K = control.shape[1]
+    n_cur = torch.as_tensor(n_cur, device=control.device).to(torch.int32).reshape(-1)
+    n_new = torch.clamp(n_cur - 1, min=4)
+    new_control = refit_spline_pruned(control, n_cur, K)
+    err = compute_prune_error(control, n_cur, new_control, n_new,
+                              view_w2c, view_times, focal, width, height)
+    accept = err <= error_threshold
+    control_out = torch.where(accept[:, None, None], new_control, control)
+    n_out = torch.where(accept, n_new, n_cur)
+    return control_out, n_out, torch.sum(accept)
+
+
+def refit_spline_pruned(control: torch.Tensor, n_cur: torch.Tensor,
+                        K: int, ridge: float = 1e-6) -> torch.Tensor:
+    """Refit each spline with one control point fewer (``spline.py:255-299``).
+
+    The current knots are the curve's samples at times j / (n_cur - 1); a
+    design matrix with max(n_cur - 1, 4) live columns is assembled, the rows
+    past the live sample count replaced by a shifted identity so the system
+    stays well-posed, and the [P, K, K] normal equations (ridge 1e-6) are
+    solved per point. ``solve_ex`` does not raise on a singular or
+    non-finite system, as ``jnp.linalg.solve`` does not: such a point's
+    refit comes out non-finite and the caller's gate rejects it.
+
+    Args:
+      control: ``[P, K, C]`` current control points.
+      n_cur: ``[P]`` current live knot counts.
+      K: capacity.
+
+    Returns:
+      ``[P, K, C]`` refitted control points, the columns at and past the
+      new knot count zeroed (the caller updates the counts).
+    """
+    dev = control.device
+    n_cur = torch.as_tensor(n_cur, device=dev).to(torch.int32).reshape(-1)
+    n_new = torch.clamp(n_cur - 1, min=4)
+
+    j = torch.arange(K, dtype=torch.float32, device=dev)[None, :]   # [1, K]
+    t_samples = j / (n_cur[:, None] - 1).to(torch.float32)        # [P, K]
+    A = design_matrix(t_samples, n_new[:, None], K)               # [P, K, K]
+
+    row_live = (j < n_cur[:, None].to(torch.float32))             # [P, K]
+    cols = torch.arange(K, dtype=torch.int32, device=dev)
+    dummy = (cols[None, :] == (cols[:, None] - 1)).to(A.dtype)
+    live = row_live[..., None].to(A.dtype)
+    A = A * live + dummy[None] * (1.0 - live)
+    b = control * live
+
+    AtA = (torch.einsum("prk,prl->pkl", A, A)
+           + ridge * torch.eye(K, dtype=A.dtype, device=dev)[None])
+    Atb = torch.einsum("prk,prc->pkc", A, b)
+    sol = torch.linalg.solve_ex(AtA, Atb)[0]                      # [P, K, C]
+    col_live = (cols[None, :] < n_new[:, None]).to(sol.dtype)
+    return sol * col_live[..., None]

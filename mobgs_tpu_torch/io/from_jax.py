@@ -14,8 +14,10 @@ import torch
 from mobgs_tpu_torch import resolve_device
 from mobgs_tpu_torch.models.blce import BLCE_FIELDS, BLCEParams, BLCEState
 from mobgs_tpu_torch.models.deformation import DeformationParams, MLPParams
+from mobgs_tpu_torch.models.grid import DenseGridParams
 from mobgs_tpu_torch.models.hexplane import HexPlaneParams
 from mobgs_tpu_torch.models.gaussians import DIFF_FIELDS, GaussianState
+from mobgs_tpu_torch.models.posenet import PoseNetParams
 from mobgs_tpu_torch.models.sandwich import SandwichParams
 from mobgs_tpu_torch.train.densify import DensifyStats
 from mobgs_tpu_torch.train.optim import AdamState
@@ -82,6 +84,31 @@ def deformation_from_numpy(fields: dict, device=None) -> DeformationParams:
         aabb=on(fields["grid"]["aabb"]))
     return DeformationParams(grid=grid, **{
         f: mlp(fields[f]) for f in DeformationParams._fields if f != "grid"})
+
+
+def posenet_from_numpy(fields: dict, device=None) -> PoseNetParams:
+    """A JAX ``PoseNetParams`` as a nested dict (the trunks as sequences of
+    (w, b) pairs, or dicts keyed by index) → PoseNetParams on ``device``;
+    ``max_time``, ``H`` and ``W`` stay Python numbers."""
+    dev = resolve_device(device)
+
+    def on(x):
+        return torch.as_tensor(np.array(x), device=dev)
+
+    def layers(node):
+        return tuple(tuple(on(a) for a in _items(pair)) for pair in _items(node))
+
+    return PoseNetParams(
+        timenet0=layers(fields["timenet0"]), timenet1=layers(fields["timenet1"]),
+        depth_net=layers(fields["depth_net"]),
+        **{f: on(fields[f]) for f in ("timenet_out_w", "depth_scale_out_w",
+                                      "depth_out_w", "focal_bias", "instance_scale")},
+        max_time=float(np.asarray(fields["max_time"])),
+        H=int(np.asarray(fields["H"])), W=int(np.asarray(fields["W"])))
+
+
+def dense_grid_from_numpy(fields: dict, device=None) -> DenseGridParams:
+    return DenseGridParams(**_tensors(fields, DenseGridParams._fields, device))
 
 
 def train_state_from_numpy(fields: dict, device=None) -> TrainState:

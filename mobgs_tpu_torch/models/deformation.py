@@ -1,13 +1,15 @@
-"""Deformation-network parameters (port of the containers of
-``mobgs_tpu/models/deformation.py``).
+"""Deformation field (port of ``mobgs_tpu/models/deformation.py``): HexPlane
+features → MLP heads.
 
-The reference instantiates the 4DGS deformation net (HexPlane features →
-MLP heads) and saves it as ``deformation.pth``, but MoBGS's fine stage
-drives motion with the spline and never renders through it, so its
-weights never change (``train/step.py:51-56`` of the JAX package). The
-port carries the parameters for the checkpoints; ``apply_deformation``
-and ``regulation_loss`` are not ported yet. Linears keep the JAX layout,
-``x @ w + b`` with w [fan_in, fan_out].
+The reference instantiates the 4DGS deformation net and saves it as
+``deformation.pth``, but MoBGS's fine stage drives motion with the spline
+and never renders through it, so its weights never change
+(``train/step.py:51-56`` of the JAX package). The field is complete all
+the same: the positional encoding, the ``feature_out`` MLP, the
+pos/scales/rotations heads with the reference's post-processing (the
+quaternion rotation of positions, the scale clamp at log 100, the
+quaternion composition of rotations) and the plane regularizers. Linears
+keep the JAX layout, ``x @ w + b`` with w [fan_in, fan_out].
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import NamedTuple
 import torch
 
 from mobgs_tpu_torch import resolve_device
+from mobgs_tpu_torch.core.se3 import quat_multiply, quat_to_rotmat
 from mobgs_tpu_torch.models import hexplane as HP
 
 
@@ -75,3 +78,57 @@ def init_deformation(generator: torch.Generator | None, hidden_cfg,
         timenet=_init_mlp(generator, [times_ch, hidden_cfg.timenet_width,
                                       hidden_cfg.timenet_output], dev),
     )
+
+
+def _apply_mlp(p: MLPParams, x: torch.Tensor, relu_first: bool = False):
+    h = x
+    for i, (w, b) in enumerate(zip(p.ws, p.bs)):
+        if relu_first or i > 0:
+            h = torch.relu(h)
+        h = h @ w + b
+    return h
+
+
+def poc_fre(x: torch.Tensor, poc_buf: torch.Tensor) -> torch.Tensor:
+    """Positional encoding [x ‖ sin(x·2^k) ‖ cos(x·2^k)] (the reference's
+    ``deformation.py:794-799``)."""
+    xp = x[..., None] * poc_buf  # [..., C, L]
+    s = torch.sin(xp).reshape(*x.shape[:-1], -1)
+    c = torch.cos(xp).reshape(*x.shape[:-1], -1)
+    return torch.cat([x, s, c], dim=-1)
+
+
+def apply_deformation(params: DeformationParams, xyz: torch.Tensor,
+                      scales: torch.Tensor, rotations: torch.Tensor, t):
+    """Deform (xyz, scales, rotations) at time t (``deformation.py:95-120``).
+
+    xyz [N, 3]; scales [N, 3] (log); rotations [N, 4]; t a scalar or [N].
+    Returns (xyz', scales', rotations')."""
+    N = xyz.shape[0]
+    tcol = torch.as_tensor(t, dtype=torch.float32,
+                           device=xyz.device).reshape(-1, 1).expand(N, 1)
+    feat = HP.query(params.grid, xyz, tcol)
+    hidden = _apply_mlp(params.feature_out, feat)
+
+    dx = _apply_mlp(params.pos_deform, hidden, relu_first=True)  # [N, 7]
+    pts = xyz + dx[:, 0:3]
+    R = quat_to_rotmat(dx[:, 3:7])
+    pts = torch.einsum("nij,nj->ni", R, pts)
+
+    ds = _apply_mlp(params.scales_deform, hidden, relu_first=True)
+    ds = torch.minimum(ds, torch.tensor(math.log(100.0), dtype=ds.dtype,
+                                        device=ds.device))
+    new_scales = scales + ds
+
+    dr = _apply_mlp(params.rotations_deform, hidden, relu_first=True)
+    new_rot = quat_multiply(rotations, dr)
+    return pts, new_scales, new_rot
+
+
+def regulation_loss(params: DeformationParams, time_smoothness_weight: float,
+                    l1_time_planes_weight: float,
+                    plane_tv_weight: float) -> torch.Tensor:
+    """``compute_regulation`` (the reference's ``gaussian_model.py:1414-1415``)."""
+    return (plane_tv_weight * HP.plane_regulation(params.grid)
+            + time_smoothness_weight * HP.time_regulation(params.grid)
+            + l1_time_planes_weight * HP.l1_time_regulation(params.grid))

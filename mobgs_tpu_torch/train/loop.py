@@ -18,6 +18,7 @@ split at every boundary, so a resumed run needs no replay of it.
 
 from __future__ import annotations
 
+import random
 import time as _time
 from typing import Callable
 
@@ -56,6 +57,40 @@ class BatchSampler:
             j = self.rng.integers(len(self.pool))
             ids.append(self.pool.pop(j))
         return np.asarray(ids, np.int64)
+
+
+class FineSampler:
+    """Temporal-coherence epoch sampler (``loop.py:49-80``, the reference's
+    ``utils/loader_utils.py:20-50``; library code that the shipped defaults
+    do not use). For each timestamp a random pose permutation with, after
+    every second element, 2 samples replayed from the epoch so far. The
+    reference's inner loop overwrites ``now_list`` on each of its 4 passes
+    and appends after the loop, so only the last permutation survives; kept.
+    The draws come from ``np.random.default_rng(seed)`` and
+    ``random.Random(seed)``, so a seed gives the JAX package's list."""
+
+    def __init__(self, num_views: int, frame_length: int, seed: int = 0):
+        self.rng = np.random.default_rng(seed)
+        py_rng = random.Random(seed)
+        sample_list: list[int] = []
+        for i in range(frame_length):
+            for _ in range(4):
+                idx = self.rng.permutation(num_views) * frame_length + i
+                now_list: list[int] = []
+                cnt = 0
+                for item in idx.tolist():
+                    now_list.append(int(item))
+                    cnt += 1
+                    if cnt % 2 == 0 and len(sample_list) > 2:
+                        now_list += py_rng.sample(sample_list, 2)
+            sample_list += now_list
+        self.sample_list = sample_list
+
+    def __iter__(self):
+        return iter(self.sample_list)
+
+    def __len__(self):
+        return len(self.sample_list)
 
 
 def make_batch(data: SceneData, ids: np.ndarray, device=None) -> Batch:

@@ -37,6 +37,31 @@ def sparsity_loss(alpha: torch.Tensor) -> torch.Tensor:
     return torch.sum(alpha ** 2)
 
 
+def binary_dice_loss(y_pred: torch.Tensor, y_true: torch.Tensor,
+                     batch_dice: bool = False, from_logits: bool = True,
+                     log_loss: bool = False, smooth: float = 0.0,
+                     eps: float = 1e-7) -> torch.Tensor:
+    """Binary Dice loss (``losses.py:44-70``, the reference's
+    ``BinaryDiceLoss``, which train.py builds and never calls). y_pred has a
+    leading batch axis; y_true is flattened per sample the same way."""
+    if from_logits:
+        # exp(logsigmoid), not sigmoid: the two differ at extreme logits
+        y_pred = torch.exp(torch.nn.functional.logsigmoid(y_pred))
+    bs = y_pred.shape[0]
+    y_pred = y_pred.reshape(bs, -1)
+    y_true = y_true.reshape(bs, -1).to(y_pred.dtype)
+    if batch_dice:
+        intersection = torch.sum(y_pred * y_true)
+        cardinality = torch.sum(y_pred + y_true)
+    else:
+        intersection = torch.sum(y_pred * y_true, dim=-1)
+        cardinality = torch.sum(y_pred + y_true, dim=-1)
+    dice = (2.0 * intersection + smooth) / torch.clamp(cardinality + smooth,
+                                                       min=eps)
+    losses = -torch.log(torch.clamp(dice, min=eps)) if log_loss else 1.0 - dice
+    return torch.mean(losses)
+
+
 def grid_sample_border(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     """Bilinear sampling with border padding, ``align_corners=False``.
 

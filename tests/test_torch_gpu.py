@@ -985,3 +985,101 @@ def test_shared_static_flow_step_matches_unshared_on_card(cuda):
             assert a is None or not a.any()
             continue
         assert _rel_err(a, b) <= STEP_REL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,mode", [(3, "RGB+ED"), (9, "RGB")])
+def test_compat_shim_kernels_match_plain_on_card(C, mode, cuda):
+    """``compat.rasterization`` through the kernels (CE = C + 2) and through
+    the plain route: forward at ATOL (depth rtol 1e-3 where α > 1e-3), each
+    input's gradient within BWD_REL of its largest magnitude, one forward
+    and one backward launch of the non-sub kernels."""
+    from mobgs_tpu_torch import compat
+
+    rng = np.random.default_rng(C)
+    n = 400
+    means = rng.normal(size=(n, 3)).astype(np.float32)
+    means[:, 2] += 6.0
+    host = [means, rng.normal(size=(n, 4)), np.exp(rng.uniform(-3.5, -1.5, (n, 3))),
+            rng.uniform(0.2, 0.95, n), rng.uniform(size=(n, C))]
+    g_img = torch.as_tensor(rng.normal(size=(1, H, W, C + (mode == "RGB+ED"))),
+                            dtype=torch.float32, device=cuda)
+    g_alpha = torch.as_tensor(rng.normal(size=(1, H, W, 1)), dtype=torch.float32, device=cuda)
+    res = {}
+    for backend in ("cuda", "plain"):
+        leaves = [torch.as_tensor(x, dtype=torch.float32, device=cuda).requires_grad_(True)
+                  for x in host]
+        before = dict(cuda_raster.launches)
+        img, alpha, info = compat.rasterization(
+            *leaves, torch.eye(4, device=cuda)[None], torch.as_tensor(KMAT, device=cuda)[None],
+            W, H, backgrounds=torch.linspace(0.1, 0.4, C, device=cuda)[None],
+            render_mode=mode, config=RasterConfig(max_per_tile=128, backend=backend))
+        if mode == "RGB+ED":
+            img = torch.cat([img[..., :-1], torch.where(alpha > 1e-3, img[..., -1:],
+                                                        torch.zeros_like(alpha))], -1)
+        grads = torch.autograd.grad(torch.sum(img * g_img) + torch.sum(alpha * g_alpha), leaves)
+        torch.cuda.synchronize()
+        res[backend] = (img.detach(), alpha.detach(), grads,
+                        {k: cuda_raster.launches[k] - before[k] for k in before})
+    (ik, ak, gk, lk), (ip, ap, gp, lp) = res["cuda"], res["plain"]
+    assert lk == {"raster_fwd": 1, "raster_fwd_sub": 0, "raster_bwd": 1, "raster_bwd_sub": 0}
+    assert not any(lp.values())
+    np.testing.assert_allclose(ak.cpu().numpy(), ap.cpu().numpy(), atol=ATOL)
+    np.testing.assert_allclose(ik[..., :C].cpu().numpy(), ip[..., :C].cpu().numpy(), atol=ATOL)
+    if mode == "RGB+ED":
+        m = (ap[..., 0] > 1e-3).cpu().numpy()
+        np.testing.assert_allclose(ik[..., -1].cpu().numpy()[m], ip[..., -1].cpu().numpy()[m],
+                                   rtol=1e-3)
+    for a, b in zip(gk, gp):
+        assert _rel_err(a, b) <= BWD_REL
+
+
+@pytest.mark.gpu
+def test_ball_query_and_deformation_on_card_match_cpu(cuda):
+    """``ball_query`` on the card: indices equal to the CPU's, in row
+    blocks; ``apply_deformation`` and ``regulation_loss`` forward at rtol
+    1e-5 and each gradient leaf within 1e-4 of its largest magnitude (the
+    gathers' backward is an index_add_ whose atomics reorder sums)."""
+    from mobgs_tpu_torch.config import ModelHiddenParams
+    from mobgs_tpu_torch.models import deformation as DF
+    from mobgs_tpu_torch.train import losses_extra as LX
+
+    rng = np.random.default_rng(3)
+    pts = torch.as_tensor(rng.uniform(-1, 1, (2, 2000, 3)), dtype=torch.float32)
+    for blk in (LX.BALL_QUERY_PANEL, 300 * 2000):
+        old, LX.BALL_QUERY_PANEL = LX.BALL_QUERY_PANEL, blk
+        try:
+            dc, ic = LX.ball_query(pts.to(cuda), pts.to(cuda), k=16, radius=0.2)
+        finally:
+            LX.BALL_QUERY_PANEL = old
+        dp, ip = LX.ball_query(pts, pts, k=16, radius=0.2)
+        assert torch.equal(ic.cpu(), ip)
+        np.testing.assert_allclose(dc.cpu().numpy(), dp.numpy(), rtol=1e-5, atol=1e-6)
+
+    hidden = ModelHiddenParams(net_width=32, kplanes_config={
+        "grid_dimensions": 2, "input_coordinate_dim": 4, "output_coordinate_dim": 8,
+        "resolution": [16, 16, 16, 6]}, multires=[1, 2])
+    params = DF.init_deformation(torch.Generator().manual_seed(0), hidden, device="cpu")
+    host = [rng.uniform(-1.6, 1.6, (3000, 3)), rng.normal(size=(3000, 3)),
+            rng.normal(size=(3000, 4)), rng.uniform(0, 1, 3000)]
+    res = {}
+    for dev in ("cpu", cuda):
+        ps = [p.detach().to(dev).requires_grad_(True)
+              for p in params.grid.grids[0] + params.grid.grids[1]]
+        grid = params.grid._replace(grids=(tuple(ps[:6]), tuple(ps[6:])),
+                                    aabb=params.grid.aabb.to(dev))
+        mlp = {f: DF.MLPParams(*(tuple(w.detach().to(dev).requires_grad_(True) for w in part)
+                                 for part in getattr(params, f)))
+               for f in DF.DeformationParams._fields if f != "grid"}
+        p = DF.DeformationParams(grid=grid, **mlp)
+        ins = [torch.as_tensor(x, dtype=torch.float32, device=dev) for x in host]
+        outs = DF.apply_deformation(p, *ins)
+        reg = DF.regulation_loss(p, 0.01, 1e-4, 2e-4)
+        loss = sum(torch.sum(o * o) for o in outs) + reg
+        leaves = ps + [w for f in mlp for part in mlp[f] for w in part if f != "timenet"]
+        res[str(dev)] = ([o.detach().cpu() for o in outs] + [reg.detach().cpu()],
+                         [g.cpu() for g in torch.autograd.grad(loss, leaves)])
+    for a, b in zip(res[str(cuda)][0], res["cpu"][0]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-6)
+    for a, b in zip(res[str(cuda)][1], res["cpu"][1]):
+        assert _rel_err(a, b) <= 1e-4
