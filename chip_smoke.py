@@ -4,9 +4,10 @@
 Drives the port's serving path, its flow-off and flow-on training steps, its
 exposure re-estimation, its host training loop, its train CLI, a user's
 whole run on a stereo scene (train, eval and metrics CLIs), the train CLI
-on an iPhone and a Blender scene and the rest of the library (the gsplat
+on an iPhone and a Blender scene, the rest of the library (the gsplat
 shim through the kernels, the deformation field, PoseNet, the warps, the
-KNN constraint and knot pruning) on one CUDA card at the seesaw protocol's full
+KNN constraint and knot pruning) and the data x gauss mesh layer (ranks
+sharing the card) on one CUDA card at the seesaw protocol's full
 width (512x288, 24 frames, 20k static + 10k dynamic seeds at x2 capacity =
 40k + 20k slots, tiles_per_gauss=9, max_per_tile=256; training at B=2 views
 and E=9 latent exposures), with a scene made from a seed and random
@@ -163,9 +164,23 @@ Sandwich and BLCE weights:
     ``onedown_control_pts`` on the 20,000 dynamic splines and 24 views, and
     again with every other spline wiggled so that both branches run
     (decisions equal), each card against CPU and timed;
-21. print the ``{"kernels": [...]}`` line (launches: the flow-off training
-    path's, the registry runs' and the shim's), chip_smoke's wall seconds,
-    then the card line and the ``{"ok": true, ...}`` line last.
+21. tile-sharded compositing and the mesh layer (``mobgs_tpu_torch/parallel``):
+    the kernels' range launches (``tile0``) at the protocol view for CE=9,
+    CE=11 + sub and CE=29 + sub, forward and backward, in 2 and 4 ranges
+    (concatenated forward bit-equal to the one launch, summed backward
+    within BWD_REL, each range against the plain version at its tile0);
+    ``parallel/dryrun.py`` with 4 ranks on the one card over ``gloo`` (data
+    2 x gauss 2: 3 steps, densify, a step, a checkpoint round trip, the
+    tile ranges, the scale-out renders); one flow-off step at protocol
+    width on mesh data 1 x gauss 2 with tile sharding on, through the
+    kernels, against the step in one process (loss within LOSS_RTOL, the
+    first Adam moments and the view-space gradients within STEP_REL); a
+    one-rank NCCL group's ``make_mesh(1, 1)`` and step against the step
+    without a mesh; the launches of the sharded steps counted;
+22. print the ``{"kernels": [...]}`` line (launches: the flow-off training
+    path's, the registry runs', the shim's and the sharded steps'),
+    chip_smoke's wall seconds, then the card line and the ``{"ok": true,
+    ...}`` line last.
 
 Every failure raises and exits non-zero. Without a CUDA card it exits 2
 and prints no result. Run: ``python3 chip_smoke.py``.
@@ -342,11 +357,12 @@ def composite_plain64():
 
     class Composite64(torch.autograd.Function):
         @staticmethod
-        def forward(ctx, ids, counts, rec, col, ntx, sub):
+        def forward(ctx, ids, counts, rec, col, ntx, sub, tile0):
             out, out2 = cuda_raster.composite_tiles_plain(ids, counts, rec.double(),
-                                                          col.double(), ntx, sub)
+                                                          col.double(), ntx, sub,
+                                                          tile0=tile0)
             ctx.save_for_backward(ids, counts, rec, col, out, out2)
-            ctx.ntx, ctx.sub = ntx, sub
+            ctx.ntx, ctx.sub, ctx.tile0 = ntx, sub, tile0
             return (out.float(), out2.float()) if sub else out.float()
 
         @staticmethod
@@ -354,11 +370,11 @@ def composite_plain64():
             ids, counts, rec, col, out, out2 = ctx.saved_tensors
             grad_rec, grad_col = cuda_raster.composite_bwd_plain(
                 ids, counts, rec.double(), col.double(), out, out2, g.double(),
-                None if g2 is None else g2.double(), ctx.ntx, ctx.sub)
-            return None, None, grad_rec.float(), grad_col.float(), None, None
+                None if g2 is None else g2.double(), ctx.ntx, ctx.sub, ctx.tile0)
+            return None, None, grad_rec.float(), grad_col.float(), None, None, None
 
-    def plain64(ids, counts, rec, col, ntx, sub=False):
-        res = Composite64.apply(ids, counts, rec, col, ntx, sub)
+    def plain64(ids, counts, rec, col, ntx, sub=False, tile0=0):
+        res = Composite64.apply(ids, counts, rec, col, ntx, sub, tile0)
         return res if sub else (res, None)
     return plain64
 
@@ -1321,9 +1337,9 @@ def library_phase(dev, card, times, protocol):
     viewmats, Ks = on(data.w2c[:1]), on(data.K[:1])
     shim_launches, operands = {}, {}
 
-    def recording_plain(ids, counts, rec, col, ntx, sub=False):
+    def recording_plain(ids, counts, rec, col, ntx, sub=False, tile0=0):
         operands[col.shape[1]] = (ids, counts, rec.detach(), col.detach(), ntx)
-        return real_plain(ids, counts, rec, col, ntx, sub)
+        return real_plain(ids, counts, rec, col, ntx, sub, tile0)
 
     real_plain = cuda_raster.composite_plain
     for C, mode in SHIM_MODES:
@@ -1604,6 +1620,366 @@ def library_phase(dev, card, times, protocol):
     times["lib_prune_s"] = time.time() - t0
     times["lib_phase_s"] = time.time() - t_phase
     return shim_launches
+
+
+def moments_rel(ts_a, ts_b):
+    """Worst max|a - b| / max|b| by group over the first Adam moments (0.1 x
+    the first step's gradient from a fresh state), and the densify
+    statistics' view-space gradient norms as ``offsets``."""
+    out = {}
+    for grp in ("stat", "dyn", "sandwich", "blce"):
+        for a, b in zip(getattr(ts_a, f"{grp}_opt").mu, getattr(ts_b, f"{grp}_opt").mu):
+            scale = float(b.abs().max())
+            if scale:
+                out[grp] = max(out.get(grp, 0.0), float((a - b).abs().max()) / scale)
+    for pool in ("stat_stats", "dyn_stats"):
+        a, b = getattr(ts_a, pool).xyz_grad_accum, getattr(ts_b, pool).xyz_grad_accum
+        out["offsets"] = max(out.get("offsets", 0.0),
+                             float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30))
+    return out
+
+
+def _protocol_step_rank(rank, n, port, out_path, device="cuda"):
+    """One rank of phase 21's sharded step: the protocol state and batch on
+    ``cuda:0``, mesh data 1 x gauss ``n`` over ``gloo``, tile sharding on;
+    one flow-off step through the kernels (launches counted from 0 just
+    before it), gathered; rank 0 then runs the same step without a mesh
+    from a fresh state and writes the comparison to ``out_path``."""
+    import torch.distributed as dist
+
+    from mobgs_tpu_torch.config import OptimizationParams
+    from mobgs_tpu_torch.ops import cuda_raster
+    from mobgs_tpu_torch.parallel import mesh as Mx
+    from mobgs_tpu_torch.train import loop as L
+    from mobgs_tpu_torch.train import step as S
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device, 0)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=n)
+    try:
+        mesh = Mx.make_mesh(1, n)
+        cfg, data, clouds, _, _ = protocol_scene(dev)
+        opt = OptimizationParams(iterations=10_000, batch_size=B_VIEWS, lambda_flow_loss=0.0)
+        batch = L.make_batch(data, L.BatchSampler(FRAMES, B_VIEWS, seed=0).next_ids(), dev)
+        ts = Mx.shard_train_state(protocol_train_state(data, clouds, dev), mesh)
+        step = S.make_train_step(opt, W, H, data.max_time, E_WARP, cfg, mesh=mesh)
+        Mx.enable_tile_sharding(mesh, axis="gauss")
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        cuda_raster.reset_launches()
+        t0 = time.time()
+        ts, m = step(ts, batch)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        step_s = time.time() - t0
+        names = sorted(cuda_raster.launches)
+        launched = torch.tensor([cuda_raster.launches[k] for k in names])
+        dist.all_reduce(launched)
+        Mx.disable_tile_sharding()
+        full = Mx.gather_train_state(ts, mesh)
+        if rank == 0:
+            ts1, m1 = S.make_train_step(opt, W, H, data.max_time, E_WARP, cfg)(
+                protocol_train_state(data, clouds, dev), batch)
+            res = {"loss": float(m.loss), "loss_one_process": float(m1.loss),
+                   "rel": moments_rel(full, ts1), "step_s": step_s,
+                   "tiles": -(-W // 16) * -(-H // 16), "launches": dict(zip(names, launched.tolist()))}
+            with open(out_path, "w") as f:
+                json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_phase(dev, card, times, protocol):
+    """Phase 21: tile-sharded compositing and the mesh layer
+    (``mobgs_tpu_torch/parallel/``). (a) The range launches (``tile0``) at
+    the protocol view for the flow-on path's instances (CE=9, CE=11 + sub,
+    CE=29 + sub), forward and backward, in S = 2 and 4 ranges: the ranges
+    concatenated equal the one launch bit for bit (forward), summed within
+    BWD_REL per column (backward), and each range is within IMG_ATOL (flow
+    and depth columns: of their magnitude) / BWD_REL of the plain version at
+    the same tile0. (b) ``parallel/dryrun.py`` with 4 ranks on the one card
+    over ``gloo``; then one flow-off step at protocol width on mesh data 1 x
+    gauss 2, tile sharding on, through the kernels, against the step in one
+    process from the same state: loss within LOSS_RTOL, the first Adam
+    moments (0.1 x each gradient leaf) and the view-space gradient norms
+    within STEP_REL. (c) A one-rank NCCL group: ``make_mesh(1, 1)``
+    (``tile_shard_info`` None) and one step through it against the step
+    without a mesh. Returns the kernels' launches in the sharded steps of
+    (b) and (c), each counted from 0 just before the step."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from mobgs_tpu_torch.config import OptimizationParams
+    from mobgs_tpu_torch.ops import cuda_raster
+    from mobgs_tpu_torch.parallel import dryrun as DR
+    from mobgs_tpu_torch.parallel import mesh as Mx
+    from mobgs_tpu_torch.train import loop as L
+    from mobgs_tpu_torch.train import step as S
+
+    train_state, data, cfg, geom, splats, bins = protocol
+    t_phase = time.time()
+    launched = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launched[k] = launched.get(k, 0) + int(v)
+
+    # -- (a) range launches at the protocol view
+    ids, cnt, ntx = bins.gauss_ids.contiguous(), bins.counts.contiguous(), bins.n_tiles_x
+    T = ids.shape[0]
+    N = geom.means.shape[0]
+    ones = torch.ones(N, 1, device=dev)
+    rng = np.random.default_rng(21)
+    ext11 = torch.cat([geom.colors, splats.depths[:, None], ones], 1)
+    col29 = torch.cat([geom.colors, torch.as_tensor(
+        rng.normal(size=(N, 2 * E_WARP)).astype(np.float32), device=dev),
+        splats.depths[:, None], ones], 1)
+    sub_op = geom.opacity * geom.dyn_mask
+    for label, col, sub in (("CE=9", geom.colors, False), ("CE=11+sub", ext11, True),
+                            ("CE=29+sub", col29, True)):
+        col = col.detach().contiguous()
+        rec = cuda_raster.pack_records(splats, geom.opacity, sub_op if sub else None).detach()
+        with torch.no_grad():
+            full = cuda_raster.composite_fwd(ids, cnt, rec, col, ntx, sub)
+        g = torch.as_tensor(rng.normal(size=full[0].shape).astype(np.float32), device=dev)
+        g2 = (torch.as_tensor(rng.normal(size=full[1].shape).astype(np.float32), device=dev)
+              if sub else None)
+        whole = cuda_raster.composite_bwd(ids, cnt, rec, col, *full, g, g2, ntx, sub)
+        for n_ranges in (2, 4):
+            per = T // n_ranges
+            outs, grads, worst = [], [], {"fwd/tol": 0.0, "bwd": 0.0}
+            for r in range(n_ranges):
+                rows = slice(r * per, (r + 1) * per)
+                args = (ids[rows].contiguous(), cnt[rows].contiguous(), rec, col)
+                gr = (g[rows].contiguous(), None if g2 is None else g2[rows].contiguous())
+                with torch.no_grad():
+                    k = cuda_raster.composite_fwd(*args, ntx, sub, tile0=r * per)
+                    p = cuda_raster.composite_tiles_plain(*args, ntx, sub, tile0=r * per)
+                kb = cuda_raster.composite_bwd(*args, *k, *gr, ntx, sub, tile0=r * per)
+                pb = cuda_raster.composite_bwd_plain(*args, *p, *gr, ntx, sub, tile0=r * per)
+                worst["fwd/tol"] = max(worst["fwd/tol"], flow_err(k[0], p[0]),
+                                       flow_err(k[1], p[1]) if sub else 0.0)
+                worst["bwd"] = max([worst["bwd"], rel_err(kb[1], pb[1])]
+                                   + [rel_err(kb[0][:, j], pb[0][:, j])
+                                      for j in range(7 if sub else 6)])
+                outs.append(k)
+                grads.append(kb)
+            torch.cuda.synchronize()
+            same = torch.equal(torch.cat([o[0] for o in outs]), full[0]) and (
+                not sub or torch.equal(torch.cat([o[1] for o in outs]), full[1]))
+            summed = max([rel_err(sum(x[1] for x in grads), whole[1])]
+                         + [rel_err(sum(x[0][:, j] for x in grads), whole[0][:, j])
+                            for j in range(7 if sub else 6)])
+            print(f"{label} in {n_ranges} ranges of {per} tiles: forward bit-equal to the one "
+                  f"launch: {same}; backward summed vs the one launch {summed:.3g}; each range "
+                  f"vs plain: {json.dumps({k2: float(f'{v:.3g}') for k2, v in worst.items()})}")
+            require(same, f"{label}: {n_ranges} range launches differ from the one launch")
+            require(summed <= BWD_REL, f"{label}: {n_ranges} ranges' backward {summed:.3g}")
+            require(worst["fwd/tol"] <= 1.0 and worst["bwd"] <= BWD_REL,
+                    f"{label}: a range vs plain {worst}")
+    times["mesh_ranges_s"] = time.time() - t_phase
+
+    # -- (b) four ranks on the one card, then the protocol-width sharded step
+    t0 = time.time()
+    summary = DR.dryrun(4, "cuda")
+    print(f"parallel/dryrun.py, 4 ranks on {card} over gloo: {json.dumps(summary)}")
+    require(summary["mesh"] == {"data": 2, "gauss": 2} and summary["backend"] == "gloo",
+            f"dry run mesh {summary}")
+    require(all(np.isfinite(summary["losses"])), "dry run losses")
+    require(all(v > 0 for v in summary["launches"].values()),
+            f"dry run launches {summary['launches']}")
+    add(summary["launches"])
+    times["mesh_dryrun_s"] = time.time() - t0
+    t0 = time.time()
+    out_path = os.path.join(ROOT, "build", "chip_smoke_mesh_step.json")
+    os.makedirs(os.path.dirname(out_path), exist_ok=True)
+    mp.start_processes(_protocol_step_rank, args=(2, DR.free_port(), out_path), nprocs=2,
+                       start_method="spawn")
+    with open(out_path) as f:
+        res = json.load(f)
+    rel_l = abs(res["loss"] - res["loss_one_process"]) / abs(res["loss_one_process"])
+    print(f"flow-off step at {W}x{H}, B={B_VIEWS}, E={E_WARP}, mesh data 1 x gauss 2 on "
+          f"{card}, tile sharding on ({res['tiles']} tiles, {res['tiles'] // 2} a rank): loss "
+          f"{res['loss']!r} vs one process {res['loss_one_process']!r} (rel {rel_l:.3g}); "
+          f"first moments and view-space gradients max|x-r|/max|r| "
+          f"{json.dumps({k: float(f'{v:.3g}') for k, v in res['rel'].items()})}; the sharded "
+          f"step {1e3 * res['step_s']:.1f} ms; launches {json.dumps(res['launches'])}")
+    require(rel_l <= LOSS_RTOL, f"sharded step loss {rel_l:.3g}")
+    for grp, r in res["rel"].items():
+        require(r <= STEP_REL[grp], f"sharded step {grp}: {r:.3g} > {STEP_REL[grp]}")
+    require(all(res["launches"][k] > 0 for k in ("raster_fwd", "raster_fwd_sub", "raster_bwd",
+                                                  "raster_bwd_sub")),
+            f"sharded step launches {res['launches']}")
+    add(res["launches"])
+    times["mesh_step_s"] = time.time() - t0
+
+    # -- (c) a one-rank NCCL group
+    t0 = time.time()
+    opt = OptimizationParams(iterations=10_000, batch_size=B_VIEWS, lambda_flow_loss=0.0)
+    batch = L.make_batch(data, L.BatchSampler(FRAMES, B_VIEWS, seed=0).next_ids(), dev)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{DR.free_port()}", rank=0,
+                            world_size=1)
+    try:
+        mesh = Mx.make_mesh(1, 1)
+        Mx.enable_tile_sharding(mesh, axis="gauss")
+        require(Mx.tile_shard_info(T) is None, "tile_shard_info on a one-rank gauss axis")
+        Mx.disable_tile_sharding()
+        step = S.make_train_step(opt, W, H, data.max_time, E_WARP, cfg, mesh=mesh)
+        torch.cuda.synchronize()
+        cuda_raster.reset_launches()
+        ts_m, m_m = step(train_state(), batch)
+        torch.cuda.synchronize()
+        add(cuda_raster.launches)
+    finally:
+        dist.destroy_process_group()
+    ts_1, m_1 = S.make_train_step(opt, W, H, data.max_time, E_WARP, cfg)(train_state(), batch)
+    rel_l = abs(float(m_m.loss) - float(m_1.loss)) / abs(float(m_1.loss))
+    rel = moments_rel(ts_m, ts_1)
+    print(f"one-rank NCCL group, mesh {tuple(mesh.shape)} ({mesh.device_type}): loss rel "
+          f"{rel_l:.3g}, first moments max|x-r|/max|r| "
+          f"{json.dumps({k: float(f'{v:.3g}') for k, v in rel.items()})}")
+    require(rel_l <= LOSS_RTOL, f"NCCL step loss {rel_l:.3g}")
+    for grp, r in rel.items():
+        require(r <= STEP_REL[grp], f"NCCL step {grp}: {r:.3g} > {STEP_REL[grp]}")
+    times["mesh_nccl_s"] = time.time() - t0
+    times["mesh_phase_s"] = time.time() - t_phase
+    print(f"phase 21: {times['mesh_phase_s']:.1f} s; the sharded steps' launches "
+          f"{json.dumps(launched)}")
+    return launched
+
+
+def loop_settings():
+    """Phase 15's loop configuration: the densify schedule brought forward
+    (boundaries 8, 12, ..., 28: static densify rounds at 8, 12, 16, prunes
+    at 20, 24, 28), opacity reset at 16, exposure updates at 10, 20, 30;
+    opthr just under the reset's 0.01 so the prunes after the reset remove
+    the Gaussians that kept fading. Returns (OptimizationParams,
+    BlceParams)."""
+    from mobgs_tpu_torch.config import BlceParams, OptimizationParams
+    return (OptimizationParams(
+        iterations=10_000, batch_size=B_VIEWS, lambda_flow_loss=LAMBDA_FLOW,
+        densify_from_iter=4, densification_interval=4, desicnt=3,
+        opacity_reset_interval=16, densify_grad_threshold=LOOP_GRAD_THR, opthr=0.009),
+        BlceParams(num_warp=E_WARP, start_warp_exposure=4))
+
+
+def protocol_train_state(data, clouds, dev, num_warp=E_WARP):
+    """A fresh training state on the protocol scene's point clouds
+    (``protocol_scene``), from seeds."""
+    from mobgs_tpu_torch.models import blce as B
+    from mobgs_tpu_torch.models import gaussians as G
+    from mobgs_tpu_torch.models.sandwich import init_sandwich
+    from mobgs_tpu_torch.train import step as S
+    s_pts, s_cols, d_traj = clouds
+    stat_t = G.create_state(s_pts, s_cols, np.zeros(len(s_pts), np.float32),
+                            capacity=len(s_pts) * CAP_MULT,
+                            generator=torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    dyn_t = G.create_state(d_traj[:, 0], np.full((len(d_traj), 3), 0.5, np.float32),
+                           np.zeros(len(d_traj), np.float32),
+                           capacity=len(d_traj) * CAP_MULT,
+                           trajectory=torch.as_tensor(d_traj),
+                           traj_times=torch.as_tensor(data.time), device=dev)
+    sw = init_sandwich(torch.Generator(device=dev).manual_seed(1), device=dev)
+    bl = B.init_blce(torch.Generator(device=dev).manual_seed(2), num_views=FRAMES,
+                     num_warp=num_warp, device=dev)
+    return S.init_train_state(stat_t, dyn_t, sw, bl)
+
+
+def leaf_names():
+    from mobgs_tpu_torch.models import blce as B
+    from mobgs_tpu_torch.models import gaussians as G
+    return {"stat": G.DIFF_FIELDS, "dyn": G.DIFF_FIELDS,
+            "sandwich": ("w1", "w2"), "blce": B.BLCE_FIELDS}
+
+
+def param_groups(ts):
+    from mobgs_tpu_torch.models import gaussians as G
+    from mobgs_tpu_torch.train import step as S
+    return {"stat": G.split_diff(ts.stat)[0], "dyn": G.split_diff(ts.dyn)[0],
+            "sandwich": S.sandwich_leaves(ts.sandwich),
+            "blce": ts.blce.params.leaves()}
+
+
+def check_step_vs_plain(opt, ts, batch, data, rcfg, num_warp=E_WARP, deep=False,
+                        report=None):
+    """One step's loss and gradients through the kernels and through the
+    plain route, same state, batch and budgets (``rcfg``); returns the
+    kernel route's aux. With ``deep`` both are also run against the
+    step with the compositor in float64 (see DEEP_PLAIN_X). ``report``, a
+    dict, receives the worst distances by group, the failed leaves and
+    each route's gradient leaves (``grads``) before the check raises."""
+    from mobgs_tpu_torch.ops import cuda_raster
+    from mobgs_tpu_torch.train import step as S
+    dev = ts.stat.xyz.device
+    names = leaf_names()
+    groups = param_groups(ts)
+    step_res = {}
+    plain = cuda_raster.composite_plain
+    for route in ("cuda", "plain", "plain64") if deep else ("cuda", "plain"):
+        backend = "cuda" if route == "cuda" else "plain"
+        fwd = S.make_forward(opt, W, H, data.max_time, num_warp,
+                             rcfg._replace(backend=backend))
+        off = torch.zeros((batch.view_idx.shape[0], ts.stat.capacity + ts.dyn.capacity, 2),
+                          device=dev, requires_grad=True)
+        if route == "plain64":
+            cuda_raster.composite_plain = composite_plain64()
+        try:
+            total, aux = fwd(ts.stat, ts.dyn, ts.sandwich, ts.blce, off, batch)
+            leaves = [p for grp in groups.values() for p in grp] + [off]
+            grads = torch.autograd.grad(total, leaves, allow_unused=True)
+        finally:
+            cuda_raster.composite_plain = plain
+        step_res[route] = (float(total.detach()), float(aux["psnr"]),
+                           {k: float(aux[k].detach()) for k in ("flow", "photo")},
+                           [torch.zeros_like(p) if gr is None else gr
+                            for p, gr in zip(leaves, grads)])
+        torch.cuda.synchronize()
+    (lk, pk, ak, gk), (lp, pp, ap, gp) = step_res["cuda"], step_res["plain"]
+    gr = step_res["plain64"][3] if deep else gp
+    print(f"loss kernels {lk!r} plain {lp!r} (rel {abs(lk - lp) / abs(lp):.3g}); "
+          f"psnr {pk:.4f} / {pp:.4f}; flow term {ak['flow']!r} / {ap['flow']!r}")
+    require(np.isfinite(lk) and abs(lk - lp) <= LOSS_RTOL * abs(lp), "train-step loss")
+    i, n_leaves = 0, 0
+    worst = {"kernels": {}, "plain": {}, "kernels vs plain": {}}
+    failed = []
+    for grp, leaves in list(groups.items()) + [("offsets", (None,))]:
+        for j in range(len(leaves)):
+            nm = "offsets" if grp == "offsets" else f"{grp}.{names[grp][j]}"
+            a, b, ref = gk[i], gp[i], gr[i]
+            i += 1
+            require(bool(torch.isfinite(a).all()), f"{nm} gradient not finite")
+            scale = float(ref.abs().max())
+            if scale == 0.0:
+                require(not a.any(), f"{nm}: kernels give a gradient, the reference none")
+                continue
+            n_leaves += 1
+            errs = {"kernels": float((a - ref).abs().max()) / scale}
+            tol = STEP_REL[grp]
+            if deep:
+                errs["plain"] = float((b - ref).abs().max()) / scale
+                errs["kernels vs plain"] = float((a - b).abs().max()) / scale
+                tol = max(tol, DEEP_PLAIN_X * errs["plain"])
+            for key, r in errs.items():
+                worst[key][grp] = max(worst[key].get(grp, 0.0), r)
+            if errs["kernels"] > tol:
+                failed.append(f"{nm} {errs['kernels']:.3g} (tolerance {tol:.3g})")
+    worst = {k: {g: float(f"{v:.3g}") for g, v in w.items()} for k, w in worst.items() if w}
+    if deep:
+        print(f"gradient leaves compared: {n_leaves}; worst max|x-r|/max|r| by group "
+              f"against r, the step with the compositor in float64: {json.dumps(worst)}")
+    else:
+        print(f"gradient leaves compared: {n_leaves}; worst max|k-p|/max|p| by group: "
+              f"{json.dumps(worst['kernels'])}")
+    if report is not None:
+        report.update(worst=worst, failed=failed, leaves=n_leaves,
+                      grads={route: res[3] for route, res in step_res.items()})
+    require(not failed, f"train-step gradients beyond tolerance: {failed}")
+    return ak
 
 
 def _tensors(tree):
@@ -1931,93 +2307,10 @@ def main():
         bwd_errs[name] = abs_err
 
     def train_state(num_warp=E_WARP):
-        stat_t = G.create_state(s_pts, s_cols, np.zeros(len(s_pts), np.float32),
-                                capacity=len(s_pts) * CAP_MULT,
-                                generator=torch.Generator(device=dev).manual_seed(0),
-                                device=dev)
-        dyn_t = G.create_state(d_traj[:, 0], np.full((len(d_traj), 3), 0.5, np.float32),
-                               np.zeros(len(d_traj), np.float32),
-                               capacity=len(d_traj) * CAP_MULT,
-                               trajectory=torch.as_tensor(d_traj),
-                               traj_times=torch.as_tensor(data.time), device=dev)
-        sw = init_sandwich(torch.Generator(device=dev).manual_seed(1), device=dev)
-        bl = B.init_blce(torch.Generator(device=dev).manual_seed(2), num_views=FRAMES,
-                         num_warp=num_warp, device=dev)
-        return S.init_train_state(stat_t, dyn_t, sw, bl)
-
-    names = {"stat": G.DIFF_FIELDS, "dyn": G.DIFF_FIELDS,
-             "sandwich": ("w1", "w2"), "blce": B.BLCE_FIELDS}
-
-    def param_groups(ts):
-        return {"stat": G.split_diff(ts.stat)[0], "dyn": G.split_diff(ts.dyn)[0],
-                "sandwich": S.sandwich_leaves(ts.sandwich),
-                "blce": ts.blce.params.leaves()}
+        return protocol_train_state(data, (s_pts, s_cols, d_traj), dev, num_warp)
 
     def step_vs_plain(opt, ts, batch, num_warp=E_WARP, rcfg=cfg, deep=False):
-        """One step's loss and gradients through the kernels and through the
-        plain route, same state, batch and budgets (``rcfg``); returns the
-        kernel route's aux. With ``deep`` both are also run against the
-        step with the compositor in float64 (see DEEP_PLAIN_X)."""
-        groups = param_groups(ts)
-        step_res = {}
-        plain = cuda_raster.composite_plain
-        for route in ("cuda", "plain", "plain64") if deep else ("cuda", "plain"):
-            backend = "cuda" if route == "cuda" else "plain"
-            fwd = S.make_forward(opt, W, H, data.max_time, num_warp,
-                                 rcfg._replace(backend=backend))
-            off = torch.zeros((B_VIEWS, ts.stat.capacity + ts.dyn.capacity, 2),
-                              device=dev, requires_grad=True)
-            if route == "plain64":
-                cuda_raster.composite_plain = composite_plain64()
-            try:
-                total, aux = fwd(ts.stat, ts.dyn, ts.sandwich, ts.blce, off, batch)
-                leaves = [p for grp in groups.values() for p in grp] + [off]
-                grads = torch.autograd.grad(total, leaves, allow_unused=True)
-            finally:
-                cuda_raster.composite_plain = plain
-            step_res[route] = (float(total.detach()), float(aux["psnr"]),
-                               {k: float(aux[k].detach()) for k in ("flow", "photo")},
-                               [torch.zeros_like(p) if gr is None else gr
-                                for p, gr in zip(leaves, grads)])
-            torch.cuda.synchronize()
-        (lk, pk, ak, gk), (lp, pp, ap, gp) = step_res["cuda"], step_res["plain"]
-        gr = step_res["plain64"][3] if deep else gp
-        print(f"loss kernels {lk!r} plain {lp!r} (rel {abs(lk - lp) / abs(lp):.3g}); "
-              f"psnr {pk:.4f} / {pp:.4f}; flow term {ak['flow']!r} / {ap['flow']!r}")
-        require(np.isfinite(lk) and abs(lk - lp) <= LOSS_RTOL * abs(lp), "train-step loss")
-        i, n_leaves = 0, 0
-        worst = {"kernels": {}, "plain": {}, "kernels vs plain": {}}
-        failed = []
-        for grp, leaves in list(groups.items()) + [("offsets", (None,))]:
-            for j in range(len(leaves)):
-                nm = "offsets" if grp == "offsets" else f"{grp}.{names[grp][j]}"
-                a, b, ref = gk[i], gp[i], gr[i]
-                i += 1
-                require(bool(torch.isfinite(a).all()), f"{nm} gradient not finite")
-                scale = float(ref.abs().max())
-                if scale == 0.0:
-                    require(not a.any(), f"{nm}: kernels give a gradient, the reference none")
-                    continue
-                n_leaves += 1
-                errs = {"kernels": float((a - ref).abs().max()) / scale}
-                tol = STEP_REL[grp]
-                if deep:
-                    errs["plain"] = float((b - ref).abs().max()) / scale
-                    errs["kernels vs plain"] = float((a - b).abs().max()) / scale
-                    tol = max(tol, DEEP_PLAIN_X * errs["plain"])
-                for key, r in errs.items():
-                    worst[key][grp] = max(worst[key].get(grp, 0.0), r)
-                if errs["kernels"] > tol:
-                    failed.append(f"{nm} {errs['kernels']:.3g} (tolerance {tol:.3g})")
-        worst = {k: {g: float(f"{v:.3g}") for g, v in w.items()} for k, w in worst.items() if w}
-        if deep:
-            print(f"gradient leaves compared: {n_leaves}; worst max|x-r|/max|r| by group "
-                  f"against r, the step with the compositor in float64: {json.dumps(worst)}")
-        else:
-            print(f"gradient leaves compared: {n_leaves}; worst max|k-p|/max|p| by group: "
-                  f"{json.dumps(worst['kernels'])}")
-        require(not failed, f"train-step gradients beyond tolerance: {failed}")
-        return ak
+        return check_step_vs_plain(opt, ts, batch, data, rcfg, num_warp, deep)
 
     def train_steps(step_fn, ts, sampler, n_warm, n_steps, label, per_step):
         """Warm up, then time ``n_steps`` synchronised steps with the launch
@@ -2494,15 +2787,7 @@ def main():
     from mobgs_tpu_torch.train import densify as D
 
     phase("15 host loop at protocol width")
-    # the densify schedule brought forward: boundaries 8, 12, ..., 28 (static
-    # densify rounds at 8, 12, 16, prunes at 20, 24, 28), opacity reset at 16,
-    # exposure updates at 10, 20, 30; opthr just under the reset's 0.01 so
-    # the prunes after the reset remove the Gaussians that kept fading
-    loop_opt = OptimizationParams(
-        iterations=10_000, batch_size=B_VIEWS, lambda_flow_loss=LAMBDA_FLOW,
-        densify_from_iter=4, densification_interval=4, desicnt=3,
-        opacity_reset_interval=16, densify_grad_threshold=LOOP_GRAD_THR, opthr=0.009)
-    loop_blce = BlceParams(num_warp=E_WARP, start_warp_exposure=4)
+    loop_opt, loop_blce = loop_settings()
     extent = L.scene_extent_from_cameras(data.w2c)
     ts_l = train_state()
     caps0 = (ts_l.stat.capacity, ts_l.dyn.capacity)
@@ -2714,10 +2999,15 @@ def main():
     for e in entries:
         e["launches"] += lib_launches.get(e["name"], 0)
     print(f"the kernels' launches through the gsplat shim: {json.dumps(lib_launches)}")
+
+    phase("21 tile-sharded compositing and the mesh layer")
+    mesh_launches = mesh_phase(dev, card, times, (train_state, data, cfg, geom, splats, bins))
+    for e in entries:
+        e["launches"] += mesh_launches.get(e["name"], 0)
     times["total_s"] = time.time() - t_start
     print(f"times: {json.dumps({k: round(v, 2) for k, v in times.items()})}")
 
-    phase("21 result")
+    phase("22 result")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

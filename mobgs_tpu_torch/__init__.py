@@ -2,7 +2,12 @@
 
 A module-for-module port of the JAX package ``mobgs_tpu``: each module here
 keeps the path and the public names of its counterpart, and its tests
-(``tests/test_torch_*.py``) hold it against that counterpart. The JAX
+(``tests/test_torch_*.py``) hold it against that counterpart. Every module
+of the JAX package has its counterpart, in the same subpackages: ``core/``,
+``data/``, ``models/``, ``ops/`` (the tile compositor's CUDA kernels in
+``csrc/``), ``train/``, ``eval/``, ``io/``, ``cli/``, ``utils/`` and
+``parallel/`` (the data x gauss mesh over ``torch.distributed``); only
+``ops/raster_jax.py``, the XLA compositor, has none by design. The JAX
 package is the reference; nothing here imports it.
 
 Entry points that create tensors take a ``device`` argument. It defaults
@@ -14,6 +19,8 @@ which the tests use.
 from __future__ import annotations
 
 import torch
+
+__version__ = "0.1.0"
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:

@@ -58,6 +58,12 @@
 // differs. Atomics add in an order that changes from run to run, so the
 // sums are not bitwise reproducible.
 //
+// A launch may cover a range of the image's tiles: tile0 is the image tile
+// of its first block. The operands (ids, counts, out, out2, g, g2) hold the
+// range's rows, indexed by blockIdx.x; the pixel origin comes from the
+// image tile tile0 + blockIdx.x (the Pallas kernels' global tile id, column
+// 1 of their SMEM counts, pallas_raster.py:613-619).
+//
 // Occupancy. Shared memory is dynamic, sized to CE and ch: at the
 // protocol's widths (ch = 128) 42 KB for CE = 9 and 39 KB for CE = 11 with
 // SUB. With __launch_bounds__(256, 5) the compiler keeps the CE <= 4 and
@@ -151,7 +157,7 @@ raster_bwd_kernel(const int32_t* __restrict__ ids,     // [T, K]
                   const float* __restrict__ g2,        // [T, P] (SUB only)
                   float* __restrict__ grad_rec,        // [N, R], zeroed
                   float* __restrict__ grad_col,        // [N, CE], zeroed
-                  int K, int CE, int ntx, int ch) {
+                  int K, int CE, int ntx, int tile0, int ch) {
   constexpr int S = Shape<SUB>::S, NA = Shape<SUB>::NA, ROWS = Shape<SUB>::ROWS;
   constexpr int WPS = WARPS / S;  // warps per slot in phase B
   extern __shared__ float smem[];
@@ -169,14 +175,15 @@ raster_bwd_kernel(const int32_t* __restrict__ ids,     // [T, K]
   float* s_scr = s_g2 + (SUB ? 2 * P : 0);  // out [CE][GP], then phase A [NA][S][P]
   int* s_hit = reinterpret_cast<int*>(s_scr + scratch_words<SUB>(CE));  // [2][S]
 
-  const int tile = blockIdx.x;
+  const int tile = blockIdx.x;     // this launch's tile: its operands' row
+  const int gtile = tile0 + tile;  // the image's tile: its pixels
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int count = counts[tile];
   if (count <= 0) return;  // nothing to replay, nothing to add
-  const float ox = (float)((tile % ntx) * TILE);
-  const float oy = (float)((tile / ntx) * TILE);
+  const float ox = (float)((gtile % ntx) * TILE);
+  const float oy = (float)((gtile / ntx) * TILE);
   const float px = (float)(tid % TILE) + 0.5f + ox;
   const float py = (float)(tid / TILE) + 0.5f + oy;
   const size_t pix = (size_t)tile * P + tid;
@@ -382,7 +389,7 @@ raster_bwd_kernel(const int32_t* __restrict__ ids,     // [T, K]
 using KernelFn = void (*)(const int32_t*, const int32_t*, const float*,
                           const float*, const float*, const float*,
                           const float*, const float*, float*, float*, int, int,
-                          int, int);
+                          int, int, int);
 
 KernelFn pick(int CE, bool sub) {
   if (sub)
@@ -418,9 +425,9 @@ extern "C" int raster_bwd(const void* ids, const void* counts, const void* rec,
                           const void* col, const void* out, const void* out2,
                           const void* g, const void* g2, void* grad_rec,
                           void* grad_col, int T, int K, int CE, int ntx,
-                          int ch, int sub, void* stream) {
+                          int tile0, int ch, int sub, void* stream) {
   if (T <= 0) return 0;
-  if (bad_shape(CE, ch) || K % ch != 0 || ntx < 1 ||
+  if (bad_shape(CE, ch) || K % ch != 0 || ntx < 1 || tile0 < 0 ||
       (sub && (out2 == nullptr || g2 == nullptr)))
     return (int)cudaErrorInvalidValue;
   const KernelFn k = pick(CE, sub != 0);
@@ -433,7 +440,7 @@ extern "C" int raster_bwd(const void* ids, const void* counts, const void* rec,
       static_cast<const float*>(out), static_cast<const float*>(out2),
       static_cast<const float*>(g), static_cast<const float*>(g2),
       static_cast<float*>(grad_rec), static_cast<float*>(grad_col), K, CE, ntx,
-      ch);
+      tile0, ch);
   return (int)cudaGetLastError();
 }
 

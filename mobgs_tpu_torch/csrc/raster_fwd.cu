@@ -50,15 +50,22 @@
 // double-buffered version measured no faster.
 // Every pixel keeps its order of operations: slots in order,
 // acc[c] += w * col[c] with w = alpha * Tc * T, Tc = trans_step(Tc, alpha),
-// T *= Tc at the chunk's end, so the output is bit for bit that of the
-// earlier one-pixel-per-thread kernel and the backward's replay keeps and
-// drops the same pairs. expf is evaluated for every pair and gated after.
+// T *= Tc at the chunk's end, so the backward's replay keeps and drops the
+// same pairs. expf is evaluated for every pair and gated after. The colour
+// sums are chunked as the plain version's: acc sums one chunk's slots from
+// zero and is folded into the tile's sum, held in `out` (thread-private
+// words), before the next chunk. One running sum over a walk thousands of
+// slots deep rounds each small late term against a large total; its
+// float32 drift was what moved the train step's gradients from the float64
+// compositor at max_per_tile 2560 (ROADMAP C.4).
 //
 // Occupancy (raster_fwd_occupancy, chip_smoke.py phase 2): at CE = 9 / 11
-// 64 threads, 92 / 102 registers, 10 KB of shared memory, 10 / 8 blocks
-// per SM; with SUB at CE = 11 128 threads, 86 registers, 5 blocks; at
-// CE = 29 with SUB 128 threads, 96 registers, 20 KB, 5 blocks; no spills;
-// the 576 tiles of a 512x288 view are resident in one wave.
+// 64 threads, 10 KB of shared memory, 8 or more blocks per SM; with SUB at
+// CE = 11 128 threads, 5 blocks; the 576 tiles of a 512x288 view are
+// resident in one wave. The instance above CE = 12 (CE = 29 with SUB,
+// 128 threads, 20 KB) is bounded to 4 blocks: at 5 its 102 registers
+// spilled once the chunk fold was added; 4 x 132 blocks hold 528 of the
+// 576 tiles at once.
 //
 // What the attribution builds found (scripts/torch_raster_ab.py --kernel
 // fwd --variants, on an H100 80GB HBM3 at 700 W): the colour sums take 26
@@ -72,6 +79,13 @@
 // 26 % of the SM-time between the first block's start and the last one's
 // end is idle (15 % for the 128-thread blocks with SUB; 4 or 5 tiles per
 // SM, tiles of 18-64 us); balancing that tail is left open.
+// A launch may cover a range of the image's tiles: tile0 is the image tile
+// of the launch's first block. The operands (ids, counts, out, out2) hold
+// the range's rows, indexed by blockIdx.x; the pixel origin comes from the
+// image tile tile0 + blockIdx.x, as the Pallas kernels take it from the
+// global tile id in column 1 of their SMEM counts (pallas_raster.py:613-619)
+// so that a shard of the tile axis composites its own pixels. With
+// tile0 = 0 over all tiles the output is that of one launch per image.
 // Plain C interface for ctypes: the entry point returns cudaGetLastError()
 // after the launch.
 
@@ -210,30 +224,31 @@ __device__ __forceinline__ void composite_slot(
 // EXACT: the launch guarantees CE == CEM (the training and render widths),
 // so no channel test is left in the sums.
 template <int CEM, bool EXACT, bool SUB>
-__global__ void __launch_bounds__(FwdShape<CEM, SUB>::NT, 5)
+__global__ void __launch_bounds__(FwdShape<CEM, SUB>::NT, CEM > 12 ? 4 : 5)
 raster_fwd_kernel(const int32_t* __restrict__ ids,     // [T, K]
                   const int32_t* __restrict__ counts,  // [T]
                   const float* __restrict__ rec,       // [N, R], 16-B aligned
                   const float* __restrict__ col,       // [N, CE]
                   float* __restrict__ out,             // [T, P, CE]
                   float* __restrict__ out2,            // [T, P] (SUB only)
-                  int K, int CE, int ntx, int ch) {
+                  int K, int CE, int ntx, int tile0, int ch) {
   constexpr int PPT = FwdShape<CEM, SUB>::PPT, CES = FwdShape<CEM, SUB>::CES;
   constexpr bool REG_COL = FwdShape<CEM, SUB>::REG_COL;
   __shared__ float4 s_rec[2 * CH_MAX];  // mx, my, a, b | c, o, o_sub, pad
   __shared__ float4 s_col4[CH_MAX * CES / 4];
 
   const int ce = EXACT ? CEM : CE;
-  const int tile = blockIdx.x;
+  const int tile = blockIdx.x;     // this launch's tile: its operands' row
+  const int gtile = tile0 + tile;  // the image's tile: its pixels
   const int tid = threadIdx.x;
   const int count = counts[tile];
   const int x = tid % TILE;
   const int y0 = (tid / TILE) * PPT;  // this thread's rows y0 .. y0 + PPT - 1
-  const float px = (float)x + 0.5f + (float)((tile % ntx) * TILE);
+  const float px = (float)x + 0.5f + (float)((gtile % ntx) * TILE);
   float py[PPT];
 #pragma unroll
   for (int k = 0; k < PPT; ++k)
-    py[k] = (float)(y0 + k) + 0.5f + (float)((tile / ntx) * TILE);
+    py[k] = (float)(y0 + k) + 0.5f + (float)((gtile / ntx) * TILE);
 
   float acc[PPT][CEM];
   float T[PPT], acc2[PPT], T2[PPT];
@@ -247,8 +262,26 @@ raster_fwd_kernel(const int32_t* __restrict__ ids,     // [T, K]
 
   const int32_t* ids_t = ids + (size_t)tile * K;
   const int n_chunks = min(K / ch, (count + ch - 1) / ch);  // chunks with a live slot
+  int done = 0;  // chunks walked
   for (int j = 0; j < n_chunks; ++j) {
     const int live = min(ch, count - j * ch);
+    if (j > 0) {
+      // ---- fold the last chunk's sums into the tile's, held in out ----
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) {
+        const size_t p = (size_t)tile * P + (y0 + k) * TILE + x;
+#pragma unroll
+        for (int c = 0; c < CEM; ++c) {
+          if (EXACT || c < ce) out[p * ce + c] = j > 1 ? out[p * ce + c] + acc[k][c] : acc[k][c];
+          acc[k][c] = 0.f;
+        }
+        if (SUB) {
+          out2[p] = j > 1 ? out2[p] + acc2[k] : acc2[k];
+          acc2[k] = 0.f;
+        }
+      }
+    }
+    done = j + 1;
     // ---- stage the chunk ----
     // (the previous chunk-end barrier keeps the copies off records in use;
     // the block waits for them while the other blocks on its SM walk)
@@ -316,13 +349,13 @@ raster_fwd_kernel(const int32_t* __restrict__ ids,     // [T, K]
     const size_t p = (size_t)tile * P + (y0 + k) * TILE + x;
 #pragma unroll
     for (int c = 0; c < CEM; ++c)
-      if (EXACT || c < ce) out[p * ce + c] = acc[k][c];
-    if (SUB) out2[p] = acc2[k];
+      if (EXACT || c < ce) out[p * ce + c] = done > 1 ? out[p * ce + c] + acc[k][c] : acc[k][c];
+    if (SUB) out2[p] = done > 1 ? out2[p] + acc2[k] : acc2[k];
   }
 }
 
 using KernelFn = void (*)(const int32_t*, const int32_t*, const float*,
-                          const float*, float*, float*, int, int, int, int);
+                          const float*, float*, float*, int, int, int, int, int);
 
 // The instance a launch with CE channels takes, and its block size.
 template <bool SUB>
@@ -359,9 +392,10 @@ bool bad_shape(int CE, int ch) {
 
 extern "C" int raster_fwd(const void* ids, const void* counts, const void* rec,
                           const void* col, void* out, void* out2, int T, int K,
-                          int CE, int ntx, int ch, int sub, void* stream) {
+                          int CE, int ntx, int tile0, int ch, int sub, void* stream) {
   if (T <= 0) return 0;
-  if (bad_shape(CE, ch) || K % ch != 0 || ntx < 1 || (sub && out2 == nullptr))
+  if (bad_shape(CE, ch) || K % ch != 0 || ntx < 1 || tile0 < 0 ||
+      (sub && out2 == nullptr))
     return (int)cudaErrorInvalidValue;
   // records are copied 16 bytes at a time
   if (reinterpret_cast<uintptr_t>(rec) % 16 != 0)
@@ -371,7 +405,7 @@ extern "C" int raster_fwd(const void* ids, const void* counts, const void* rec,
   k<<<T, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(ids), static_cast<const int32_t*>(counts),
       static_cast<const float*>(rec), static_cast<const float*>(col),
-      static_cast<float*>(out), static_cast<float*>(out2), K, CE, ntx, ch);
+      static_cast<float*>(out), static_cast<float*>(out2), K, CE, ntx, tile0, ch);
   return (int)cudaGetLastError();
 }
 

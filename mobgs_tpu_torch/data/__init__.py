@@ -1,1 +1,2 @@
 """Cameras and the synthetic scene generator."""
+from mobgs_tpu_torch.data import cameras, synthetic  # noqa: F401

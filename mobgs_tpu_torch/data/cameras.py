@@ -11,6 +11,7 @@ from typing import NamedTuple
 
 import torch
 
+from mobgs_tpu_torch import resolve_device
 from mobgs_tpu_torch.core import se3
 
 
@@ -18,6 +19,18 @@ class Camera(NamedTuple):
     w2c: torch.Tensor   # [4, 4]
     K: torch.Tensor     # [3, 3]
     time: torch.Tensor  # scalar f32, normalized
+
+
+def camera_from_rt(R, t, K, time, device=None) -> Camera:
+    """From the reference convention (R = c2w rotation, t = w2c
+    translation), through :func:`se3.world_to_view`, on ``device`` (the
+    card unless told otherwise)."""
+    dev = resolve_device(device)
+
+    def f32(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+    return Camera(w2c=se3.world_to_view(f32(R), f32(t)), K=f32(K), time=f32(time))
 
 
 def pixel_grid(width: int, height: int, use_center: bool = False,

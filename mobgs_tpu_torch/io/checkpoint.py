@@ -18,11 +18,13 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mobgs_tpu_torch.io import from_jax
 from mobgs_tpu_torch.models.blce import BLCE_FIELDS
 from mobgs_tpu_torch.models.gaussians import DIFF_FIELDS, GaussianState
 from mobgs_tpu_torch.models.sandwich import SandwichParams
+from mobgs_tpu_torch.parallel import mesh as Mx
 from mobgs_tpu_torch.train.densify import DensifyStats
 from mobgs_tpu_torch.train.step import TrainState
 
@@ -87,7 +89,14 @@ def peek_shape(path: str, key: str):
         return data[key].shape
 
 
-def save_train_state(path: str, ts: TrainState) -> None:
+def save_train_state(path: str, ts: TrainState, mesh=None) -> None:
+    """Write the state. With ``mesh`` the state is a rank's gauss shard
+    (``parallel/mesh.py::shard_train_state``): every rank must call, the
+    shards are gathered and rank 0 writes the whole state."""
+    if mesh is not None:
+        ts = Mx.gather_train_state(ts, mesh)
+        if dist.get_rank() != 0:
+            return
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     np.savez_compressed(path, **flatten_train_state(ts))
 

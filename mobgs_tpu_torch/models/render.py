@@ -197,7 +197,8 @@ def render_view(stat: G.GaussianState, dyn: G.GaussianState,
         alpha_masks=torch.stack(sub_masks) if sub_masks else None,
         means2d_offset=means2d_offset,
         want_depth=want_depth, want_alpha=want_alpha,
-        splats=splats, shared=shared, config=config)
+        splats=splats, shared=shared, config=config,
+        segments=(stat.capacity, dyn.capacity))
 
     rays = cam_rays(cam, width, height)
     image = apply_sandwich(sandwich, out.images[0, ..., :9], rays)

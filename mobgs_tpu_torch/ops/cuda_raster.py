@@ -28,8 +28,9 @@ table in device memory, which is what ``_gather_records``
 (``pallas_raster.py:398-428``) builds for the TPU's block specs. The
 forward gives each thread several pixels of one column and reads each
 record as two 16-byte shared loads that feed all of them, in a
-straight-line walk of two slots a step; its output is bit for bit that of
-one thread per pixel (``raster_fwd.cu``'s note). The backward
+straight-line walk of two slots a step; each pixel's order of operations
+does not depend on how many pixels a thread owns, and its colour sums are
+chunked as the plain version's (``raster_fwd.cu``'s note). The backward
 replays a few slots at a time per pixel into shared memory, then sums each
 slot over the tile's pixels with one atomic per slot and term
 (``raster_bwd.cu``'s note). :func:`fwd_occupancy` and
@@ -62,6 +63,7 @@ import torch
 
 from mobgs_tpu_torch.ops.projection import ProjectedSplats
 from mobgs_tpu_torch.ops.tiles import TILE, TileBins
+from mobgs_tpu_torch.parallel import mesh as Mx
 
 P = TILE * TILE  # 256 pixels per tile
 CH = 64          # minimum chunk unit; max_per_tile must divide by this
@@ -180,7 +182,7 @@ def _library(name: str) -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         fn = getattr(lib, name)
         n_ptr = 6 if name == "raster_fwd" else 10
-        fn.argtypes = [vp] * n_ptr + [ci] * 6 + [vp]
+        fn.argtypes = [vp] * n_ptr + [ci] * 7 + [vp]
         fn.restype = ci
         occ = getattr(lib, f"{name}_occupancy")
         occ.argtypes = [ci, ci, ci, vp]
@@ -249,22 +251,24 @@ def column_groups(CE: int) -> list[tuple[int, int]]:
     return bounds
 
 
-def _launch(ids, counts, rec, col, ntx: int, sub: bool):
+def _launch(ids, counts, rec, col, ntx: int, sub: bool, tile0: int = 0):
     """Launch the forward kernel on the current stream, once per column
-    group (:func:`column_groups`); returns (out, out2|None)."""
+    group (:func:`column_groups`), over the tiles [tile0, tile0 + T) of the
+    image (``ids`` and ``counts`` hold those rows); returns (out,
+    out2|None)."""
     _check_operands("raster_fwd", ids, counts, rec, col)
     if rec.data_ptr() % 16:
         raise ValueError("raster_fwd: rec is not 16-byte aligned (records "
                          "are copied 16 bytes at a time)")
     outs, out2 = [], None
     for a, b in column_groups(col.shape[1]):
-        o, o2 = _launch_group(ids, counts, rec, col[:, a:b].contiguous(), ntx, sub)
+        o, o2 = _launch_group(ids, counts, rec, col[:, a:b].contiguous(), ntx, sub, tile0)
         outs.append(o)
         out2 = o2 if out2 is None else out2
     return (outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)), out2
 
 
-def _launch_group(ids, counts, rec, col, ntx: int, sub: bool):
+def _launch_group(ids, counts, rec, col, ntx: int, sub: bool, tile0: int = 0):
     T, K = ids.shape
     CE = col.shape[1]
     dev = rec.device
@@ -275,17 +279,18 @@ def _launch_group(ids, counts, rec, col, ntx: int, sub: bool):
         err = lib.raster_fwd(ids.data_ptr(), counts.data_ptr(),
                              rec.data_ptr(), col.data_ptr(), out.data_ptr(),
                              out2.data_ptr() if sub else None,
-                             T, K, CE, ntx, _pick_chunk(K), int(sub), _stream(dev))
+                             T, K, CE, ntx, tile0, _pick_chunk(K), int(sub), _stream(dev))
     if err != 0:
         raise RuntimeError(f"raster_fwd launch failed: CUDA error {err}")
     _count("raster_fwd_sub" if sub else "raster_fwd", CE)
     return out, out2
 
 
-def _launch_bwd(ids, counts, rec, col, out, out2, g, g2, ntx: int, sub: bool):
+def _launch_bwd(ids, counts, rec, col, out, out2, g, g2, ntx: int, sub: bool,
+                tile0: int = 0):
     """Launch the backward kernel on the current stream, once per column
-    group (:func:`column_groups`); returns (grad_rec [N, R], grad_col
-    [N, CE])."""
+    group (:func:`column_groups`), over the tiles [tile0, tile0 + T) of the
+    image; returns (grad_rec [N, R], grad_col [N, CE])."""
     T, K = ids.shape
     N, CE = col.shape
     pixel = [("out", out, (T, P, CE)), ("g", g, (T, P, CE))]
@@ -297,13 +302,14 @@ def _launch_bwd(ids, counts, rec, col, out, out2, g, g2, ntx: int, sub: bool):
         gr, gc = _launch_bwd_group(
             ids, counts, rec, col[:, a:b].contiguous(), out[..., a:b].contiguous(),
             out2, g[..., a:b].contiguous(),
-            g2 if i == 0 or g2 is None else torch.zeros_like(g2), ntx, sub)
+            g2 if i == 0 or g2 is None else torch.zeros_like(g2), ntx, sub, tile0)
         grad_rec = gr if grad_rec is None else grad_rec + gr
         grad_cols.append(gc)
     return grad_rec, grad_cols[0] if len(grad_cols) == 1 else torch.cat(grad_cols, dim=1)
 
 
-def _launch_bwd_group(ids, counts, rec, col, out, out2, g, g2, ntx: int, sub: bool):
+def _launch_bwd_group(ids, counts, rec, col, out, out2, g, g2, ntx: int, sub: bool,
+                      tile0: int = 0):
     T, K = ids.shape
     N, CE = col.shape
     dev = rec.device
@@ -316,7 +322,7 @@ def _launch_bwd_group(ids, counts, rec, col, out, out2, g, g2, ntx: int, sub: bo
                              out2.data_ptr() if sub else None, g.data_ptr(),
                              g2.data_ptr() if sub else None,
                              grad_rec.data_ptr(), grad_col.data_ptr(),
-                             T, K, CE, ntx, _pick_chunk(K), int(sub), _stream(dev))
+                             T, K, CE, ntx, tile0, _pick_chunk(K), int(sub), _stream(dev))
     if err != 0:
         raise RuntimeError(f"raster_bwd launch failed: CUDA error {err}")
     _count("raster_bwd_sub" if sub else "raster_bwd", CE)
@@ -353,10 +359,10 @@ class _CompositeCuda(torch.autograd.Function):
     """The kernels' route: forward kernel, backward kernel."""
 
     @staticmethod
-    def forward(ctx, ids, counts, rec, col, ntx, sub):
-        out, out2 = _launch(ids, counts, rec, col, ntx, sub)
+    def forward(ctx, ids, counts, rec, col, ntx, sub, tile0=0):
+        out, out2 = _launch(ids, counts, rec, col, ntx, sub, tile0)
         ctx.save_for_backward(ids, counts, rec, col, out, out2)
-        ctx.ntx, ctx.sub = ntx, sub
+        ctx.ntx, ctx.sub, ctx.tile0 = ntx, sub, tile0
         return (out, out2) if sub else out
 
     @staticmethod
@@ -364,8 +370,8 @@ class _CompositeCuda(torch.autograd.Function):
         ids, counts, rec, col, out, out2 = ctx.saved_tensors
         g2 = g2.contiguous() if ctx.sub else None
         grad_rec, grad_col = _launch_bwd(ids, counts, rec, col, out, out2,
-                                         g.contiguous(), g2, ctx.ntx, ctx.sub)
-        return None, None, grad_rec, grad_col, None, None
+                                         g.contiguous(), g2, ctx.ntx, ctx.sub, ctx.tile0)
+        return None, None, grad_rec, grad_col, None, None, None
 
 
 class _CompositePlain(torch.autograd.Function):
@@ -374,26 +380,40 @@ class _CompositePlain(torch.autograd.Function):
     against), on any device."""
 
     @staticmethod
-    def forward(ctx, ids, counts, rec, col, ntx, sub):
-        out, out2 = composite_tiles_plain(ids, counts, rec, col, ntx, sub)
+    def forward(ctx, ids, counts, rec, col, ntx, sub, tile0=0):
+        out, out2 = composite_tiles_plain(ids, counts, rec, col, ntx, sub, tile0=tile0)
         ctx.save_for_backward(ids, counts, rec, col, out, out2)
-        ctx.ntx, ctx.sub = ntx, sub
+        ctx.ntx, ctx.sub, ctx.tile0 = ntx, sub, tile0
         return (out, out2) if sub else out
 
     @staticmethod
     def backward(ctx, g, g2=None):
         ids, counts, rec, col, out, out2 = ctx.saved_tensors
         grad_rec, grad_col = composite_bwd_plain(ids, counts, rec, col, out,
-                                                 out2, g, g2, ctx.ntx, ctx.sub)
-        return None, None, grad_rec, grad_col, None, None
+                                                 out2, g, g2, ctx.ntx, ctx.sub,
+                                                 ctx.tile0)
+        return None, None, grad_rec, grad_col, None, None, None
 
 
 # ---------------------------------------------------------------------------
 # the plain version
 
+def _tile_pixels(T: int, ntx: int, tile0: int, dt, dev):
+    """Pixel centres (px, py), each [T, 1, P], of the image tiles
+    [tile0, tile0 + T)."""
+    lin = torch.arange(P, device=dev)
+    tile = torch.arange(tile0, tile0 + T, device=dev)
+    px = ((lin % TILE).to(dt) + 0.5)[None, None, :] \
+        + ((tile % ntx) * TILE).to(dt)[:, None, None]
+    py = ((lin // TILE).to(dt) + 0.5)[None, None, :] \
+        + ((tile // ntx) * TILE).to(dt)[:, None, None]
+    return px, py
+
+
 def composite_tiles_plain(ids: torch.Tensor, counts: torch.Tensor,
                           rec: torch.Tensor, col: torch.Tensor, ntx: int,
-                          sub: bool = False, work: dict | None = None):
+                          sub: bool = False, work: dict | None = None,
+                          tile0: int = 0):
     """Plain PyTorch version of the kernel, with the Pallas semantics.
 
     Args:
@@ -405,6 +425,8 @@ def composite_tiles_plain(ids: torch.Tensor, counts: torch.Tensor,
       col: [N, CE] colour columns, of ``rec``'s dtype.
       ntx: tiles per image row (pixel origin of tile t).
       sub: also run the subset-opacity chain (record column 6).
+      tile0: the image tile of row 0: ``ids`` and ``counts`` hold the
+        tiles [tile0, tile0 + T) of the image (a shard of the tile axis).
       work: when a dict, receives what this input needed: ``slots`` [T],
         the live slots each tile composited before its early exit;
         ``valid`` / ``valid_sub``, the (slot, pixel) pairs whose alpha
@@ -418,12 +440,7 @@ def composite_tiles_plain(ids: torch.Tensor, counts: torch.Tensor,
     ch = _pick_chunk(K)
     dev = rec.device
     dt = rec.dtype
-    lin = torch.arange(P, device=dev)
-    tile = torch.arange(T, device=dev)
-    px = ((lin % TILE).to(dt) + 0.5)[None, None, :] \
-        + ((tile % ntx) * TILE).to(dt)[:, None, None]        # [T, 1, P]
-    py = ((lin // TILE).to(dt) + 0.5)[None, None, :] \
-        + ((tile // ntx) * TILE).to(dt)[:, None, None]
+    px, py = _tile_pixels(T, ntx, tile0, dt, dev)
     counts = counts.to(torch.int64)
 
     acc = torch.zeros((T, P, col.shape[1]), dtype=dt, device=dev)
@@ -486,7 +503,7 @@ def composite_bwd_plain(ids: torch.Tensor, counts: torch.Tensor,
                         rec: torch.Tensor, col: torch.Tensor,
                         out: torch.Tensor, out2: torch.Tensor | None,
                         g: torch.Tensor, g2: torch.Tensor | None, ntx: int,
-                        sub: bool = False):
+                        sub: bool = False, tile0: int = 0):
     """Plain PyTorch version of the backward kernel, with the Pallas
     semantics (``_bwd_kernel`` / ``_bwd_kernel_sub``).
 
@@ -511,12 +528,7 @@ def composite_bwd_plain(ids: torch.Tensor, counts: torch.Tensor,
     ch = _pick_chunk(K)
     dev = rec.device
     dt = rec.dtype
-    lin = torch.arange(P, device=dev)
-    tile = torch.arange(T, device=dev)
-    px = ((lin % TILE).to(dt) + 0.5)[None, None, :] \
-        + ((tile % ntx) * TILE).to(dt)[:, None, None]        # [T, 1, P]
-    py = ((lin // TILE).to(dt) + 0.5)[None, None, :] \
-        + ((tile // ntx) * TILE).to(dt)[:, None, None]
+    px, py = _tile_pixels(T, ntx, tile0, dt, dev)
     counts = counts.to(torch.int64)
 
     grad_rec = torch.zeros((N, R), dtype=dt, device=dev)
@@ -594,32 +606,33 @@ def composite_bwd_plain(ids: torch.Tensor, counts: torch.Tensor,
 
 
 def composite_fwd(ids: torch.Tensor, counts: torch.Tensor, rec: torch.Tensor,
-                  col: torch.Tensor, ntx: int, sub: bool = False):
+                  col: torch.Tensor, ntx: int, sub: bool = False, tile0: int = 0):
     """The forward kernel's wrapper: launches it for CUDA tensors (its
     backward launches the backward kernel), and takes the plain route only
-    for tensors on the CPU. Returns (out, out2|None)."""
+    for tensors on the CPU. ``ids`` and ``counts`` hold the image tiles
+    [tile0, tile0 + T). Returns (out, out2|None)."""
     fn = _CompositePlain if rec.device.type == "cpu" else _CompositeCuda
-    res = fn.apply(ids, counts, rec, col, ntx, sub)
+    res = fn.apply(ids, counts, rec, col, ntx, sub, tile0)
     return res if sub else (res, None)
 
 
 def composite_plain(ids: torch.Tensor, counts: torch.Tensor, rec: torch.Tensor,
-                    col: torch.Tensor, ntx: int, sub: bool = False):
+                    col: torch.Tensor, ntx: int, sub: bool = False, tile0: int = 0):
     """The plain route on any device (``backend="plain"``), differentiable
     through :func:`composite_bwd_plain`. Returns (out, out2|None)."""
-    res = _CompositePlain.apply(ids, counts, rec, col, ntx, sub)
+    res = _CompositePlain.apply(ids, counts, rec, col, ntx, sub, tile0)
     return res if sub else (res, None)
 
 
 def composite_bwd(ids, counts, rec, col, out, out2, g, g2, ntx: int,
-                  sub: bool = False):
+                  sub: bool = False, tile0: int = 0):
     """The backward kernel's wrapper: launches it for CUDA tensors, and
     takes :func:`composite_bwd_plain` only for tensors on the CPU. Returns
     (grad_rec [N, R], grad_col [N, CE])."""
     if rec.device.type == "cpu":
         return composite_bwd_plain(ids, counts, rec, col, out, out2, g, g2,
-                                   ntx, sub)
-    return _launch_bwd(ids, counts, rec, col, out, out2, g, g2, ntx, sub)
+                                   ntx, sub, tile0)
+    return _launch_bwd(ids, counts, rec, col, out, out2, g, g2, ntx, sub, tile0)
 
 
 # ---------------------------------------------------------------------------
@@ -663,6 +676,12 @@ def composite_tiles(bins: TileBins, splats: ProjectedSplats,
     CPU tensors), ``"cuda"`` (the kernel; raises for CPU tensors) or
     ``"plain"``.
 
+    On gauss-sharded rows with tile sharding on
+    (``parallel/mesh.py::enable_tile_sharding``) and the tile count
+    divisible by the gauss axis, each gauss rank composites its range of
+    the tiles and the ranges are all-gathered before the epilogue; rows
+    replicated on every rank composite every tile.
+
     Epilogue (``pallas_raster.py:657-679``): untile, clamp alpha with
     ``min(α, 1)``, blend the background as ``bg·(1−α)``, divide depth by
     ``max(α, 1e-10)``.
@@ -693,7 +712,23 @@ def composite_tiles(bins: TileBins, splats: ProjectedSplats,
     counts = bins.counts.to(torch.int32).contiguous()
 
     fn = composite_plain if backend == "plain" else composite_fwd
-    out, out2 = fn(ids, counts, rec, col, ntx, sub=has_sub)
+    # the tile-axis shard (pallas_raster.py:631-656), for rows gathered from
+    # the gauss ranks: this rank composites its contiguous tile range with
+    # the kernels' tile0, and the ranges' tiles are all-gathered. The
+    # per-splat gradients of a range are partial; the backward of the
+    # gather that brought the splats sums them over gauss
+    # (parallel/mesh.py::gather_gauss_rows).
+    shard = Mx.tile_shard_info(ntx * nty) if Mx.gauss_shard_info() else None
+    if shard is None:
+        out, out2 = fn(ids, counts, rec, col, ntx, sub=has_sub)
+    else:
+        mesh, axis, S = shard
+        tile0 = mesh.get_local_rank(axis) * (ntx * nty // S)
+        out, out2 = fn(Mx.constrain_tile_axis(ids, 0).contiguous(),
+                       Mx.constrain_tile_axis(counts, 0).contiguous(), rec, col, ntx,
+                       sub=has_sub, tile0=tile0)
+        out = Mx.gather_tile_axis(out, 0)
+        out2 = Mx.gather_tile_axis(out2, 0) if has_sub else None
 
     full = _untile(out, ntx, nty, width, height)
     image = full[..., :C]

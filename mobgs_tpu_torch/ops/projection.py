@@ -20,6 +20,7 @@ from typing import NamedTuple
 import torch
 
 from mobgs_tpu_torch.core import se3
+from mobgs_tpu_torch.parallel import mesh as Mx
 
 
 class ProjectedSplats(NamedTuple):
@@ -53,7 +54,12 @@ def project(means: torch.Tensor, quats: torch.Tensor, scales: torch.Tensor,
 
     Returns:
       ProjectedSplats; culled Gaussians have radius 0.
+
+    On gauss-sharded rows (``parallel/mesh.py::gauss_sharded``) ``means``,
+    ``quats`` and ``scales`` are this rank's rows; the camera's gradient
+    from them is then summed over the ``gauss`` ranks.
     """
+    viewmat = Mx.replicated_into_rows(viewmat)
     dt = means.dtype
     Rcw = viewmat[:3, :3]
     tcw = viewmat[:3, 3]

@@ -20,6 +20,7 @@ from typing import NamedTuple
 import torch
 
 from mobgs_tpu_torch.ops import cuda_raster, projection, tiles
+from mobgs_tpu_torch.parallel import mesh as Mx
 
 
 class RasterConfig(NamedTuple):
@@ -85,7 +86,8 @@ def rasterize(means: torch.Tensor, quats: torch.Tensor, scales: torch.Tensor,
               want_alpha: bool = True,
               splats: projection.ProjectedSplats | None = None,
               shared: SharedStatic | None = None,
-              config: RasterConfig = RasterConfig()) -> RasterOut:
+              config: RasterConfig = RasterConfig(),
+              segments: tuple[int, ...] | None = None) -> RasterOut:
     """Render one camera view with one or more subset passes.
 
     Args:
@@ -104,10 +106,23 @@ def rasterize(means: torch.Tensor, quats: torch.Tensor, scales: torch.Tensor,
       shared: SharedStatic from :func:`make_shared_static` for this camera:
         only the rows past its static prefix are projected and binned here
         (exclusive with ``splats``).
+      segments: on gauss-sharded rows (``parallel/mesh.py::gauss_sharded``),
+        the local row counts of the pools the per-Gaussian arguments
+        concatenate (static, dynamic); one pool by default.
+
+    On gauss-sharded rows the per-Gaussian arguments are this rank's rows:
+    they are projected here, then the records, colours, opacities and masks
+    are all-gathered over ``gauss`` into the unsharded order (each pool
+    whole in turn) before binning (the JAX README's step 2). ``means2d``
+    and ``radii`` of the result are this rank's rows.
 
     Returns:
       RasterOut with a leading pass axis.
     """
+    gauss = Mx.gauss_shard_info()
+    if gauss is not None and shared is not None:
+        raise ValueError("the camera-shared static pool does not run on "
+                         "gauss-sharded rows")
     if shared is not None:
         # the camera-shared static path (rasterize.py:125-142): the dynamic
         # rows' projection after the shared static one, their records merged
@@ -125,6 +140,16 @@ def rasterize(means: torch.Tensor, quats: torch.Tensor, scales: torch.Tensor,
                                     sigma_cut=config.sigma_cut)
     if means2d_offset is not None:
         splats = splats._replace(means2d=splats.means2d + means2d_offset)
+    local = splats
+    if pass_masks is None:
+        pass_masks = torch.ones((1, means.shape[0]), dtype=means.dtype,
+                                device=means.device)
+    if gauss is not None:
+        n_tiles = -(-width // tiles.TILE) * -(-height // tiles.TILE)
+        splats, opacities, colors, pass_masks, alpha_masks = _gather_rows(
+            splats, opacities, colors, pass_masks, alpha_masks, segments,
+            partial_grads=Mx.tile_shard_info(n_tiles) is not None)
+    N = splats.means2d.shape[0]
     if shared is not None:
         # the dynamic records without the offset: it is zeros (a gradient
         # tap), so the bins are those of the unshared path
@@ -136,10 +161,6 @@ def rasterize(means: torch.Tensor, quats: torch.Tensor, scales: torch.Tensor,
         bins = tiles.bin_gaussians(_detached(splats), width, height,
                                    tiles_per_gauss=config.tiles_per_gauss,
                                    max_per_tile=config.max_per_tile)
-
-    if pass_masks is None:
-        pass_masks = torch.ones((1, means.shape[0]), dtype=means.dtype,
-                                device=means.device)
 
     def composite(cols, opac, sub_opac=None, bg=None, depth=True, alpha=True):
         return cuda_raster.composite_tiles(
@@ -165,14 +186,36 @@ def rasterize(means: torch.Tensor, quats: torch.Tensor, scales: torch.Tensor,
 
     sub_alphas = None
     if n_alpha:
-        zero_colors = torch.zeros((means.shape[0], 0), dtype=colors.dtype,
-                                  device=colors.device)
+        zero_colors = torch.zeros((N, 0), dtype=colors.dtype, device=colors.device)
         sub_list += [composite(zero_colors, opacities * alpha_masks[i])[1]
                      for i in range(1, n_alpha)]
         sub_alphas = torch.stack(sub_list)
     return RasterOut(images=images, alphas=alphas, depths=depths,
-                     means2d=splats.means2d, radii=splats.radii,
+                     means2d=local.means2d, radii=local.radii,
                      sub_alphas=sub_alphas, tile_max=bins.max_count)
+
+
+def _gather_rows(splats, opacities, colors, pass_masks, alpha_masks, segments,
+                 partial_grads):
+    """The per-splat tensors of this rank's rows all-gathered over ``gauss``
+    as one table, in one collective (``parallel/mesh.py::gather_gauss_rows``;
+    with ``partial_grads``, a tile-sharded compositor's, its backward sums
+    the ranks' partial gradients). The radii ride as float32, exact below
+    2^24."""
+    cols = [splats.means2d, splats.conics, splats.depths[:, None],
+            splats.radii.to(torch.float32)[:, None], opacities[:, None],
+            colors, pass_masks.T]
+    if alpha_masks is not None:
+        cols.append(alpha_masks.T)
+    widths = [c.shape[1] for c in cols]
+    table = Mx.gather_gauss_rows(torch.cat([c.to(torch.float32) for c in cols], 1),
+                                 segments, partial_grads)
+    parts = torch.split(table, widths, dim=1)
+    whole = projection.ProjectedSplats(
+        means2d=parts[0], conics=parts[1], depths=parts[2][:, 0],
+        radii=parts[3][:, 0].detach().to(torch.int32))
+    return (whole, parts[4][:, 0], parts[5], parts[6].T,
+            parts[7].T if alpha_masks is not None else None)
 
 
 def validate_max_per_tile(means, quats, scales, opacities, colors,

@@ -47,6 +47,7 @@ from mobgs_tpu_torch.models import gaussians as G
 from mobgs_tpu_torch.models import render as R
 from mobgs_tpu_torch.models.sandwich import SandwichParams
 from mobgs_tpu_torch.ops.rasterize import RasterConfig
+from mobgs_tpu_torch.parallel import mesh as Mx
 from mobgs_tpu_torch.train import densify, losses
 from mobgs_tpu_torch.train.optim import (AdamState, adam_update, gaussian_lrs,
                                          init_adam)
@@ -288,11 +289,29 @@ def make_train_step(opt_cfg, width: int, height: int, max_time: float,
                     with_latents: bool = True,
                     with_exposure_delta: bool = True,
                     with_omega_freeze: bool = False,
-                    shared_static: bool = False):
+                    shared_static: bool = False, mesh=None):
     """Build the per-iteration update ``train_step(ts, batch) -> (ts,
     Metrics)`` (``step.py:383-474``). It runs on the device the state lives
     on, and reads the state's Parameters from ``ts`` on every call, so a
     state whose pools grew between calls needs no new step.
+
+    mesh: a ``data`` x ``gauss`` mesh (``parallel/mesh.py::make_mesh``), the
+    explicit form of the JAX step's sharding propagation; None runs the
+    step as on one device. With a mesh the step takes this rank's state
+    (``parallel/mesh.py::shard_train_state``: its rows of the pools, their
+    moments and statistics; the rest replicated) and its B / n_data views
+    of the batch. Projection runs on the rank's rows and the records are
+    all-gathered before binning (``ops/rasterize.py``); the step reduces
+    over ``data`` what the JAX step reduces over the batch
+    (``step.py:361-376,425-455``): the loss, the metrics and every gradient
+    leaf averaged (the mask and flow terms are sums over the batch's views,
+    so a rank's share counts n_data times before the average), the view-space
+    gradient summed (a rank's is of its own mean over B / n_data views:
+    scaled by 1 / n_data first), ``radii_max``, ``visible`` and
+    ``tile_max`` maxed. The replicated leaves' gradients are also averaged
+    over ``gauss``, where every rank holds them whole, so every rank takes
+    the same BLCE clip and Adam update; the gauss-sharded leaves update
+    their own rows.
 
     with_omega_freeze: densify mode 1 past iteration 8001
     (helper_train.py:191-194): the step takes two more arguments, [M] bool
@@ -302,6 +321,7 @@ def make_train_step(opt_cfg, width: int, height: int, max_time: float,
     forward = make_forward(opt_cfg, width, height, max_time, num_warp,
                            raster_cfg, use_blce, with_latents,
                            with_exposure_delta, shared_static)
+    n_data = 1 if mesh is None else mesh.size(0)
 
     def train_step(ts: TrainState, batch: Batch, stat_omega_mask=None,
                    dyn_omega_mask=None):
@@ -317,14 +337,26 @@ def make_train_step(opt_cfg, width: int, height: int, max_time: float,
                               requires_grad=True)
         groups = (stat_p, dyn_p, sand_p, blce_p, (offsets,))
         leaves = [p for grp in groups for p in grp]
-        with torch.enable_grad():
+        with torch.enable_grad(), Mx.gauss_sharded(mesh):
             for p in leaves:
                 p.requires_grad_(True)
             total, aux = forward(ts.stat, ts.dyn, ts.sandwich, ts.blce,
                                  offsets, batch)
+            if n_data > 1:
+                # the mask term (sums over pixels) and the flow term sum
+                # over the batch's views: this rank's views count n_data
+                # times before the average over data
+                total = total + (n_data - 1) * (aux["mask"] + aux["flow"])
+                aux["mask"], aux["flow"] = n_data * aux["mask"], n_data * aux["flow"]
             grads = torch.autograd.grad(total, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)]
+        if mesh is not None:
+            n_gauss_leaves = len(stat_p) + len(dyn_p)
+            grads = (_mean_over(mesh, ("data",), grads[:n_gauss_leaves])
+                     + _mean_over(mesh, ("gauss", "data"),
+                                  grads[n_gauss_leaves:-1])
+                     + [grads[-1] / n_data])
         split, i = [], 0
         for grp in groups:
             split.append(grads[i:i + len(grp)])
@@ -344,6 +376,11 @@ def make_train_step(opt_cfg, width: int, height: int, max_time: float,
             radii = aux["radii"]                          # [B, Ntot]
             radii_max = radii.amax(0)
             visible = (radii > 0).any(0)
+            if mesh is not None:
+                vs_grad = Mx.reduce_over(mesh, "data", vs_grad)
+                radii_max = Mx.reduce_over(mesh, "data", radii_max, "max")
+                visible = Mx.reduce_over(mesh, "data", visible.to(torch.int32),
+                                         "max").to(torch.bool)
             stat_stats = densify.add_stats(ts.stat_stats, vs_grad[:Ms],
                                            radii_max[:Ms], visible[:Ms])
             dyn_stats = densify.add_stats(ts.dyn_stats, vs_grad[Ms:],
@@ -373,13 +410,32 @@ def make_train_step(opt_cfg, width: int, height: int, max_time: float,
                              sandwich_opt=sand_opt, blce_opt=blce_opt,
                              stat_stats=stat_stats, dyn_stats=dyn_stats,
                              step=step)
-        metrics = Metrics(loss=total.detach(), photo=aux["photo"].detach(),
-                          depth_l1=aux["depth_l1"].detach(),
-                          mask=aux["mask"].detach(), flow=aux["flow"].detach(),
-                          psnr=aux["psnr"], tile_max=aux["tile_max"])
+        values = [total, aux["photo"], aux["depth_l1"], aux["mask"], aux["flow"],
+                  aux["psnr"]]
+        tile_max = aux["tile_max"]
+        if mesh is not None:
+            values = Mx.reduce_over(mesh, "data", torch.stack(
+                [torch.as_tensor(v, dtype=torch.float32, device=dev).detach()
+                 for v in values]), "mean").unbind()
+            tile_max = Mx.reduce_over(mesh, "data", tile_max, "max")
+        loss, photo, depth_l1, mask, flow, psnr_v = (v.detach() for v in values)
+        metrics = Metrics(loss=loss, photo=photo, depth_l1=depth_l1, mask=mask,
+                          flow=flow, psnr=psnr_v, tile_max=tile_max)
         return new_ts, metrics
 
     return train_step
+
+
+def _mean_over(mesh, axes, grads):
+    """The gradient tensors averaged over each mesh axis of ``axes`` in
+    turn, as one flat buffer per axis."""
+    if not grads:
+        return []
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    for axis in axes:
+        flat = Mx.reduce_over(mesh, axis, flat, "mean")
+    return [x.view_as(g) for x, g in zip(torch.split(flat, [g.numel() for g in grads]),
+                                          grads)]
 
 
 def make_exposure_update(width: int, height: int, max_time: float,

@@ -5,10 +5,12 @@ of ``chip_smoke.py`` phases 3-4: 512x288, 40k + 20k slots,
 tiles_per_gauss=9, K=256, so 576 tiles and chunk 128).
 
     python3 scripts/torch_raster_ab.py --kernel fwd|bwd [--source LABEL=PATH ...]
-                                       [--variants] [--ce29] [--out FILE]
+                                       [--variants] [--ce29] [--k K] [--out FILE]
 
-Every source must export the tree's C entry point (``raster_fwd(...)`` or
-``raster_bwd(...)``); an earlier design is extracted with ``git show
+Every source must export the C entry point ``raster_fwd(...)`` or
+``raster_bwd(...)``, either the tree's (with ``tile0``) or the one before
+it (bound as its source declares it, :func:`bind`); an earlier design is
+extracted with ``git show
 <commit>:<path>`` into a directory that ``.gitignore`` lists (``build/``).
 Each is compiled with the port's nvcc flags and ``mobgs_tpu_torch/csrc`` on
 the include path, all ``nvcc`` started together, into ``build/ab/``.
@@ -29,7 +31,9 @@ fires) and ``no_phase_b`` (phase B removed).
 The cases are the main path's instances on the same inputs. Forward: the
 latent render (CE=9, image only), the default render (CE=11), the mid
 render (CE=11 with the sub chain); backward: the latent and mid renders.
-``--ce29`` adds the flow-on mid render's CE=29 with the sub chain. Builds
+``--ce29`` adds the flow-on mid render's CE=29 with the sub chain. ``--k
+K`` takes ``chip_smoke.py`` phase 14's K-ladder view at max_per_tile K
+(128x128, 64 tiles, opacities x0.1: walks thousands of entries deep). Builds
 run in turns: the tree, the others, the others in reverse, the tree; each
 turn is the mean of 50 launches by CUDA events, output allocation (and for
 the backward the zeroing of its two gradient tables) included, as
@@ -56,10 +60,9 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import H, W, card_line, cuda_ms, protocol_scene  # noqa: E402
+from chip_smoke import H, K_VIEW, W, card_line, cuda_ms, protocol_scene  # noqa: E402
 
 ITERS = 50
-ENTRY_POINTERS = {"fwd": 6, "bwd": 10}  # pointer arguments of the C entry point
 
 # ---- the backward's attribution edits ----
 PHASE_B_START = "      // ---- phase B: the sums over pixels, 8 / S warps per slot ----\n"
@@ -76,9 +79,9 @@ WALK_START = "    // ---- walk the chunk ----\n"
 WALK_END = "    // ---- end of the walk ----\n"
 EXACT_PICKS = ("  if (CE == 9) {\n", "  if (CE == 11) {\n")
 PPT_LINE = "static constexpr int PPT = CEM > 12 || SUB ? 2 : 4;"
-TILE_LINE = "  const int tile = blockIdx.x;\n"
+TILE_LINE = "  const int tile = blockIdx.x;     // this launch's tile: its operands' row\n"
 WRITE_START = "  // ---- write the tile's sums ----\n"
-WRITE_END = "    if (SUB) out2[p] = acc2[k];\n  }\n"
+WRITE_END = "    if (SUB) out2[p] = done > 1 ? out2[p] + acc2[k] : acc2[k];\n  }\n"
 TIMER = '  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ab_t{0}));\n'
 
 VARIANTS = {"fwd": ("no_colour", "stage_only", "one_slot", "other_ppt", "no_exact",
@@ -164,12 +167,21 @@ def build(name: str, sources: dict[str, Path], out_dir: Path):
     return built
 
 
-def bind(so: Path, name: str, n_ptr: int):
+def takes_tile0(src: Path) -> bool:
+    """Whether a source's entry point has the ``tile0`` argument (the tree
+    since the tile-axis shard); an earlier design's has not."""
+    return "int tile0" in src.read_text()
+
+
+def bind(so: Path, name: str, tile0: bool):
+    """The entry point ``name`` of a library, bound as its source declares it."""
     lib = ctypes.CDLL(str(so))
     vp, ci = ctypes.c_void_p, ctypes.c_int
     fn = getattr(lib, name)
-    fn.argtypes = [vp] * n_ptr + [ci] * 6 + [vp]
+    n_ptr = 6 if name == "raster_fwd" else 10
+    fn.argtypes = [vp] * n_ptr + [ci] * (7 if tile0 else 6) + [vp]
     fn.restype = ci
+    fn.tile0 = tile0
     return fn
 
 
@@ -188,8 +200,9 @@ def fwd_launcher(fn, args):
         out = torch.empty((T, cuda_raster.P, CE), dtype=torch.float32, device=rec.device)
         out2 = (torch.empty((T, cuda_raster.P), dtype=torch.float32, device=rec.device)
                 if sub else None)
+        shape = (T, K, CE, ntx, 0) if fn.tile0 else (T, K, CE, ntx)
         err = fn(ids.data_ptr(), cnt.data_ptr(), rec.data_ptr(), col.data_ptr(),
-                 out.data_ptr(), out2.data_ptr() if sub else None, T, K, CE, ntx, ch,
+                 out.data_ptr(), out2.data_ptr() if sub else None, *shape, ch,
                  int(sub), stream)
         if err != 0:
             raise RuntimeError(f"raster_fwd launch failed: CUDA error {err}")
@@ -211,33 +224,44 @@ def bwd_launcher(fn, args):
     def run():
         gr = torch.zeros((N, cuda_raster.R), dtype=torch.float32, device=rec.device)
         gc = torch.zeros((N, CE), dtype=torch.float32, device=rec.device)
+        shape = (T, K, CE, ntx, 0) if fn.tile0 else (T, K, CE, ntx)
         err = fn(ids.data_ptr(), cnt.data_ptr(), rec.data_ptr(), col.data_ptr(),
                  out.data_ptr(), out2.data_ptr() if sub else None, g.data_ptr(),
                  g2.data_ptr() if sub else None, gr.data_ptr(), gc.data_ptr(),
-                 T, K, CE, ntx, ch, int(sub), stream)
+                 *shape, ch, int(sub), stream)
         if err != 0:
             raise RuntimeError(f"raster_bwd launch failed: CUDA error {err}")
         return gr, gc
     return run
 
 
-def protocol_cases(kernel: str, dev, with_ce29: bool):
+def protocol_cases(kernel: str, dev, with_ce29: bool, k_view: int = 0):
     """The protocol view's operands of ``kernel``, built as chip_smoke.py
-    builds them (same seeds). Forward: {case: (ids, counts, rec, col, ntx,
-    sub)}; backward: {case: (ids, counts, rec, col, out, out2, g, g2, ntx,
-    sub)}, with the forward kernel's outputs and seeded upstream gradients."""
+    builds them (same seeds); with ``k_view`` K, phase 14's K-ladder view
+    instead (128x128 at a quarter of the focal length, opacities x0.1,
+    max_per_tile K). Forward: {case: (ids, counts, rec, col, ntx, sub)};
+    backward: {case: (ids, counts, rec, col, out, out2, g, g2, ntx, sub)},
+    with the forward kernel's outputs and seeded upstream gradients."""
     from mobgs_tpu_torch.data.cameras import Camera
     from mobgs_tpu_torch.models import render as R
     from mobgs_tpu_torch.ops import cuda_raster, tiles
 
     cfg, data, _, stat, dyn = protocol_scene(dev)
+    k_mat = np.array(data.K[0], np.float32)
+    w, h, budget, opac_x = W, H, cfg.max_per_tile, 1.0
+    if k_view:
+        k_mat[0, 0] *= 0.25
+        k_mat[1, 1] *= 0.25
+        k_mat[0, 2] = k_mat[1, 2] = K_VIEW / 2
+        w, h, budget, opac_x = K_VIEW, K_VIEW, k_view, 0.1
     cam = Camera(w2c=torch.as_tensor(data.w2c[0], device=dev),
-                 K=torch.as_tensor(data.K[0], device=dev),
+                 K=torch.as_tensor(k_mat, device=dev),
                  time=torch.tensor(float(data.time[0]), device=dev))
     with torch.no_grad():
-        geom, splats = R.assemble_project(stat, dyn, cam, W, H, data.max_time, config=cfg)
-        bins = tiles.bin_gaussians(splats, W, H, tiles_per_gauss=cfg.tiles_per_gauss,
-                                   max_per_tile=cfg.max_per_tile)
+        geom, splats = R.assemble_project(stat, dyn, cam, w, h, data.max_time, config=cfg)
+        geom = geom._replace(opacity=opac_x * geom.opacity)
+        bins = tiles.bin_gaussians(splats, w, h, tiles_per_gauss=cfg.tiles_per_gauss,
+                                   max_per_tile=budget)
     N = geom.means.shape[0]
     ids, cnt, ntx = bins.gauss_ids.contiguous(), bins.counts.contiguous(), bins.n_tiles_x
     ext = torch.cat([geom.colors, splats.depths[:, None], torch.ones(N, 1, device=dev)], 1)
@@ -320,6 +344,8 @@ def main():
     ap.add_argument("--source", action="append", default=[], metavar="LABEL=PATH")
     ap.add_argument("--variants", action="store_true")
     ap.add_argument("--ce29", action="store_true")
+    ap.add_argument("--k", type=int, default=0, metavar="K",
+                    help="the K-ladder view at max_per_tile K instead of the protocol view")
     ap.add_argument("--out", type=Path, help="also write the JSON object here")
     a = ap.parse_args()
     if not torch.cuda.is_available():
@@ -350,12 +376,14 @@ def main():
         for line in log.splitlines():
             if any(k in line for k in ("Compiling entry", "registers", "spill")):
                 print(f"  ptxas {label}:", line.split("info    :")[-1].strip())
-    fns = {label: bind(so, name, ENTRY_POINTERS[a.kernel]) for label, (so, _) in built.items()}
-    cases = protocol_cases(a.kernel, dev, a.ce29)
+    fns = {label: bind(so, name, takes_tile0(sources[label]))
+           for label, (so, _) in built.items()}
+    cases = protocol_cases(a.kernel, dev, a.ce29, a.k)
     others = [lb for lb in fns if lb != "tree"]
     order = ["tree", *others, *reversed(others), "tree"]
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    result = {"kernel": a.kernel, "card": card, "iters": ITERS, "order": order, "cases": {}}
+    result = {"kernel": a.kernel, "card": card, "iters": ITERS, "order": order,
+              "k_view": a.k, "cases": {}}
     launcher = fwd_launcher if a.kernel == "fwd" else bwd_launcher
     for case, args in cases.items():
         sub = args[-1]

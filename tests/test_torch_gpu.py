@@ -351,6 +351,50 @@ def test_backward_kernel_matches_plain_on_card(case, cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("S", (2, 4))
+@pytest.mark.parametrize("case", ("ragged_ce9", "saturating_ce11_sub", "wide_gauss_ce29_sub"))
+def test_range_launches_compose_the_one_launch_on_card(case, S, cuda):
+    """The tile-axis shard's launches (``tile0``): S ranges of the 20 tiles,
+    each launched alone with its first image tile, give the one launch's
+    forward bit for bit (concatenated) and its backward within BWD_REL per
+    column (summed: the atomics' order differs), and each range is within
+    ATOL / BWD_REL of the plain version at the same ``tile0``."""
+    scene, C, ext, sub = FWD_EDGE[case]
+    ids, cnt, rec, col, ntx = _edge_operands(scene, C, ext, sub, cuda)
+    T = ids.shape[0]
+    per = T // S
+    rng = np.random.default_rng(S)
+    with torch.no_grad():
+        full = cuda_raster.composite_fwd(ids, cnt, rec, col, ntx, sub)
+        g = torch.as_tensor(rng.normal(size=full[0].shape).astype(np.float32), device=cuda)
+        g2 = (torch.as_tensor(rng.normal(size=full[1].shape).astype(np.float32), device=cuda)
+              if sub else None)
+        whole = cuda_raster.composite_bwd(ids, cnt, rec, col, *full, g, g2, ntx, sub)
+        parts, grads = [], []
+        for r in range(S):
+            rows = slice(r * per, (r + 1) * per)
+            args = (ids[rows].contiguous(), cnt[rows].contiguous(), rec, col)
+            k = cuda_raster.composite_fwd(*args, ntx, sub, tile0=r * per)
+            p = cuda_raster.composite_tiles_plain(*args, ntx, sub, tile0=r * per)
+            np.testing.assert_allclose(k[0].cpu().numpy(), p[0].cpu().numpy(), atol=ATOL)
+            parts.append(k)
+            gr = (g[rows].contiguous(), None if g2 is None else g2[rows].contiguous())
+            kb = cuda_raster.composite_bwd(*args, *k, *gr, ntx, sub, tile0=r * per)
+            pb = cuda_raster.composite_bwd_plain(*args, *p, *gr, ntx, sub, tile0=r * per)
+            for j in range(7 if sub else 6):
+                assert _rel_err(kb[0][:, j], pb[0][:, j]) <= BWD_REL, (r, j)
+            assert _rel_err(kb[1], pb[1]) <= BWD_REL, r
+            grads.append(kb)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat([k[0] for k in parts]), full[0])
+    if sub:
+        assert torch.equal(torch.cat([k[1] for k in parts]), full[1])
+    for j in range(7 if sub else 6):
+        assert _rel_err(sum(kb[0][:, j] for kb in grads), whole[0][:, j]) <= BWD_REL, j
+    assert _rel_err(sum(kb[1] for kb in grads), whole[1]) <= BWD_REL
+
+
+@pytest.mark.gpu
 def test_backward_kernel_repeats_on_card(cuda):
     """Two launches on the same inputs agree within BWD_REL per column: the
     atomics across tiles add in an order that changes from run to run."""
