@@ -16,7 +16,9 @@ iterations); ``eval_curve.json``; ``point_cloud/iteration_<N>`` and
 dynamic pool and the decoder), ``point_cloud_static.ply``, ``blce.pth``,
 ``deformation.pth`` / ``_table`` / ``_accum`` and ``train_state.npz``;
 and the debug grids ``fine_debug/iter_*.png``. The JAX package loads every
-one of them.
+one of them. With ``--trace_spans`` it also writes ``spans.json``: the
+loop's spans (per path: count, total and self host seconds) and the tile
+binning's counters over the run (``utils/observability.py::report``).
 
 With ``-s`` it sniffs the scene's kind as the JAX CLI does. A directory
 with ``poses_bounds.npy`` is read as a DyBluRF stereo scene
@@ -45,6 +47,7 @@ import numpy as np
 import torch
 
 from mobgs_tpu_torch import resolve_device
+from mobgs_tpu_torch.utils import observability as obs
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -78,6 +81,10 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--eval_tto", action="store_true",
                    help="run 5 TTO steps in the in-training eval (the "
                         "reference renders aligned test cams with no TTO)")
+    p.add_argument("--trace_spans", action="store_true",
+                   help="record the loop's spans and the binning's counters "
+                        "(utils/observability.py) and write them to "
+                        "spans.json beside history.json")
     return p
 
 
@@ -376,6 +383,9 @@ def main(argv=None, device=None):
                                       data.max_time, config=raster_cfg)(msg)
 
     n_iters = min(cfg.opt.iterations, 5000) if args.check_seed else cfg.opt.iterations
+    if args.trace_spans:
+        obs.reset()
+        obs.tracing(spans=True, counters=True)
     try:
         ts, history = L.train(
             ts, data, cfg.opt, cfg.blce, iterations=n_iters,
@@ -388,6 +398,8 @@ def main(argv=None, device=None):
             base_raster_cfg=base_raster_cfg, checkpoint_every=500,
             on_checkpoint=periodic_checkpoint, device=dev)
     finally:
+        if args.trace_spans:
+            obs.tracing(False)
         if viewer is not None:
             viewer.close()
     if args.check_seed:
@@ -400,6 +412,9 @@ def main(argv=None, device=None):
         history = [prior_hist[k] for k in sorted(prior_hist)] + history
     with open(hist_path, "w") as f:
         json.dump(history, f)
+    if args.trace_spans:
+        with open(os.path.join(out_dir, "spans.json"), "w") as f:
+            json.dump(obs.report(), f, indent=1)
     print(f"done. best test PSNR {best['psnr']:.2f} @ iter {best['iter']}; "
           f"checkpoints in {out_dir}")
     return ts, history

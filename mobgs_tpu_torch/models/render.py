@@ -7,6 +7,11 @@ tiles; optical flow is a 2D displacement composited as extra colour
 columns. With ``shared=`` (``make_shared_view``) the static pool's
 projection and binning are made once per camera and reused by every pass
 at that camera, only the dynamic rows projected and merged per pass.
+
+The entries the train step and the exposure update call (``render_view``,
+``get_flow_static``, ``make_shared_view``, ``project_dyn2d``,
+``project_combined``, ``assemble_project``) run in the span ``render``
+(``utils/observability.py``); a nested call in its own, one level down.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from mobgs_tpu_torch.models.sandwich import SandwichParams, apply_sandwich
 from mobgs_tpu_torch.ops import projection
 from mobgs_tpu_torch.ops.rasterize import (RasterConfig, RasterOut,
                                            make_shared_static, rasterize)
+from mobgs_tpu_torch.utils import observability as obs
 
 
 class SceneGeom(NamedTuple):
@@ -91,6 +97,7 @@ def assemble_static(stat: G.GaussianState):
     return s_means, s_quats, s_scales, s_opac, s_colors
 
 
+@obs.spanned("render")
 def make_shared_view(stat: G.GaussianState, cam: Camera,
                      width: int, height: int,
                      config: RasterConfig = RasterConfig()):
@@ -104,6 +111,7 @@ def make_shared_view(stat: G.GaussianState, cam: Camera,
                               width, height, config)
 
 
+@obs.spanned("render")
 def project_dyn2d(dyn: G.GaussianState, cam: Camera,
                   width: int, height: int, max_time: float = 1.0,
                   delta_exposure=None,
@@ -140,6 +148,7 @@ class RenderOut(NamedTuple):
     tile_max: torch.Tensor | int = 0  # pre-clamp peak tile occupancy
 
 
+@obs.spanned("render")
 def render_view(stat: G.GaussianState, dyn: G.GaussianState,
                 sandwich: SandwichParams, cam: Camera,
                 width: int, height: int, bg3: torch.Tensor,
@@ -231,6 +240,7 @@ def render_view(stat: G.GaussianState, dyn: G.GaussianState,
                      tile_max=out.tile_max)
 
 
+@obs.spanned("render")
 def assemble_project(stat: G.GaussianState, dyn: G.GaussianState,
                      cam: Camera, width: int, height: int,
                      max_time: float = 1.0, delta_exposure=None,
@@ -245,6 +255,7 @@ def assemble_project(stat: G.GaussianState, dyn: G.GaussianState,
     return geom, splats
 
 
+@obs.spanned("render")
 def project_combined(stat: G.GaussianState, dyn: G.GaussianState,
                      cam: Camera, width: int, height: int,
                      max_time: float = 1.0, delta_exposure=None,
@@ -286,6 +297,7 @@ def get_flow(stat: G.GaussianState, dyn: G.GaussianState,
     return exp2mid_coord, mid2exp_coord, exp_out.image, exp_out.d_alpha
 
 
+@obs.spanned("render")
 def get_flow_static(stat: G.GaussianState, source_cam: Camera,
                     target_cam: Camera, splat_cam: Camera,
                     width: int, height: int,

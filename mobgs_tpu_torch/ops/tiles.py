@@ -22,6 +22,12 @@ detached splats.
 ``bin_static`` and ``merge_dyn_bins`` are the camera-shared static binning:
 the static pool binned once per view, the dynamic records merged into it
 per pass, with the result of ``bin_gaussians`` over the concatenation.
+
+Counters (``utils/observability.py``, while counting is on), once per
+binning: ``bin.candidates`` the entries sorted (N x ``tiles_per_gauss``;
+on the shared route the static ones in ``bin_static``, the dynamic ones
+in ``merge_dyn_bins``), ``bin.valid`` the pre-clamp entries, ``bin.kept``
+those under ``max_per_tile`` and ``bin.tiles_cut`` the tiles above it.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import numpy as np
 import torch
 
 from mobgs_tpu_torch.ops.projection import ProjectedSplats
+from mobgs_tpu_torch.utils import observability as obs
 
 TILE = 16
 INT32_MAX = 2**31 - 1
@@ -53,9 +60,21 @@ def bin_gaussians(splats: ProjectedSplats, width: int, height: int,
         splats, width, height, tiles_per_gauss)
     ids = _tile_slices(gidx_sorted, starts, ntx * nty, max_per_tile)
     max_count = torch.max(counts)
-    counts = torch.clamp(counts, max=max_per_tile)
-    return TileBins(gauss_ids=ids, counts=counts,
+    kept = torch.clamp(counts, max=max_per_tile)
+    if obs.COUNTING:
+        obs.count("bin.candidates",
+                  host_int=splats.means2d.shape[0] * tiles_per_gauss)
+        _count_kept(counts, kept, max_per_tile)
+    return TileBins(gauss_ids=ids, counts=kept,
                     n_tiles_x=ntx, n_tiles_y=nty, max_count=max_count)
+
+
+def _count_kept(counts_raw, counts, max_per_tile: int):
+    """The binning's counters of valid entries (pre-clamp), of entries kept
+    under ``max_per_tile`` and of tiles that cut some."""
+    obs.count("bin.valid", device_tensor=counts_raw)
+    obs.count("bin.kept", device_tensor=counts)
+    obs.count("bin.tiles_cut", device_tensor=counts_raw, above=max_per_tile)
 
 
 def _tile_index(v: torch.Tensor, n: int) -> torch.Tensor:
@@ -168,6 +187,9 @@ def bin_static(splats: ProjectedSplats, width: int, height: int,
         splats, width, height, tiles_per_gauss)
     ids = _tile_slices(gidx_sorted, starts, ntx * nty, max_per_tile)
     keys = _key_panel(keys_sorted, starts, counts, ntx * nty, max_per_tile)
+    if obs.COUNTING:
+        obs.count("bin.candidates",
+                  host_int=splats.means2d.shape[0] * tiles_per_gauss)
     return StaticBins(ids=ids, keys=keys, counts_raw=counts,
                       n_tiles_x=ntx, n_tiles_y=nty)
 
@@ -200,8 +222,12 @@ def merge_dyn_bins(static: StaticBins, dyn_splats: ProjectedSplats,
     merged = torch.gather(ids_cat, 1, order[:, :K])
 
     counts_raw = static.counts_raw + counts_d  # the same entry set
-    return TileBins(gauss_ids=merged,
-                    counts=torch.clamp(counts_raw, max=K),
+    kept = torch.clamp(counts_raw, max=K)
+    if obs.COUNTING:
+        obs.count("bin.candidates",
+                  host_int=dyn_splats.means2d.shape[0] * tiles_per_gauss)
+        _count_kept(counts_raw, kept, K)
+    return TileBins(gauss_ids=merged, counts=kept,
                     n_tiles_x=static.n_tiles_x, n_tiles_y=static.n_tiles_y,
                     max_count=torch.max(counts_raw))
 

@@ -35,6 +35,7 @@ from mobgs_tpu_torch.ops.rasterize import (RasterConfig, rasterize,
 from mobgs_tpu_torch.train import densify as D
 from mobgs_tpu_torch.train.step import (Batch, TrainState, make_exposure_update,
                                         make_train_step)
+from mobgs_tpu_torch.utils import observability as obs
 
 DYN_POOL, STAT_POOL = 0, 1  # the last element of a split-noise key
 
@@ -198,6 +199,13 @@ def train(ts: TrainState, data: SceneData, opt_cfg, blce_cfg,
     budgets a step ran at can be read back. A non-finite loss there raises
     FloatingPointError. ``tile_max`` is read from the device only at those
     iterations and at densify boundaries, as in the JAX loop.
+
+    Spans (``utils/observability.py``, off unless ``tracing`` turned them
+    on): each iteration runs in ``iteration``, its stages in its children
+    ``batch``, ``step`` (with the step's ``forward``, ``backward`` and
+    ``update``), ``expo_update``, ``budgets``, ``densify`` and ``read``
+    (the log iterations' device reads); the hooks run after it in the root
+    spans ``eval``, ``debug`` and ``checkpoint``.
     """
     want, dev = resolve_device(device), ts.stat.xyz.device
     if dev.type != want.type or want.index not in (None, dev.index):
@@ -346,100 +354,114 @@ def train(ts: TrainState, data: SceneData, opt_cfg, blce_cfg,
     t0 = _time.time()
 
     for it in range(start_iter, iterations + 1):
-        # SIBR viewer poll (reference train.py:293-309)
-        if viewer is not None and viewer_render is not None:
-            viewer.poll(lambda msg: viewer_render(ts, msg))
+        with obs.span("iteration"):
+            with obs.span("batch"):
+                # SIBR viewer poll (reference train.py:293-309)
+                if viewer is not None and viewer_render is not None:
+                    viewer.poll(lambda msg: viewer_render(ts, msg))
+                ids = sampler.next_ids()
+                batch = batcher(ids)
+            freeze = densify_mode == 1 and omega_mask_s is not None
+            with obs.span("step"):
+                if freeze:
+                    ts, metrics = step_for(it, True)(ts, batch, omega_mask_s,
+                                                     omega_mask_d)
+                else:
+                    ts, metrics = step_for(it)(ts, batch)
 
-        ids = sampler.next_ids()
-        batch = batcher(ids)
-        freeze = densify_mode == 1 and omega_mask_s is not None
-        if freeze:
-            ts, metrics = step_for(it, True)(ts, batch, omega_mask_s,
-                                             omega_mask_d)
-        else:
-            ts, metrics = step_for(it)(ts, batch)
+            # exposure re-estimation every 10 iterations for every batch view
+            # (reference train.py:474-492)
+            if it > blce_cfg.start_warp_exposure and it % 10 == 0:
+                with obs.span("expo_update"):
+                    i = batch.view_idx
+                    fwd = torch.clamp(i + 1, max=V - 1)
+                    bwd = torch.clamp(i - 1, min=0)
+                    ts = expo_fn(ts, i, batcher.w2c[i], batcher.K[i],
+                                 batcher.time[i], batcher.blur_feats[i],
+                                 batcher.w2c[fwd], batcher.w2c[bwd],
+                                 (i == 0) | (i == V - 1))
 
-        # exposure re-estimation every 10 iterations for every batch view
-        # (reference train.py:474-492)
-        if it > blce_cfg.start_warp_exposure and it % 10 == 0:
-            i = batch.view_idx
-            fwd = torch.clamp(i + 1, max=V - 1)
-            bwd = torch.clamp(i - 1, min=0)
-            ts = expo_fn(ts, i, batcher.w2c[i], batcher.K[i], batcher.time[i],
-                         batcher.blur_feats[i], batcher.w2c[fwd],
-                         batcher.w2c[bwd], (i == 0) | (i == V - 1))
+            with obs.span("budgets"):
+                # capacity drift check at every densify interval, on the
+                # boundary iteration's tile_max and the logged iterations'
+                # since the last boundary (a device read every iteration
+                # would sync every step)
+                if it % opt_cfg.densification_interval == 0:
+                    observed = max(tile_max_seen, int(metrics.tile_max))
+                    tile_max_seen = 0
+                    maybe_escalate_capacity(ts, it, observed)
+                if deescalate_every and it % deescalate_every == 0:
+                    maybe_deescalate_budgets(ts, it)
 
-        # capacity drift check at every densify interval, on the boundary
-        # iteration's tile_max and the logged iterations' since the last
-        # boundary (a device read every iteration would sync every step)
-        if it % opt_cfg.densification_interval == 0:
-            observed = max(tile_max_seen, int(metrics.tile_max))
-            tile_max_seen = 0
-            maybe_escalate_capacity(ts, it, observed)
-        if deescalate_every and it % deescalate_every == 0:
-            maybe_deescalate_budgets(ts, it)
+            with obs.span("densify"):
+                # densification (helper_train.py:183-289), the dynamic pool
+                # first, each pool with its own split-noise key
+                dyn, dyn_opt, dyn_stats, flag_d, omega_mask_d, nd = \
+                    D.control_gaussians(
+                        ts.dyn, ts.dyn_stats, ts.dyn_opt, (seed, it, DYN_POOL),
+                        it, flag_d, opt_cfg, scene_extent, is_dynamic=True,
+                        mode=densify_mode, omega_mask=omega_mask_d,
+                        maxbounds=bounds_d[0], minbounds=bounds_d[1],
+                        total_iterations=iterations)
+                stat, stat_opt, stat_stats, flag_s, omega_mask_s, ns = \
+                    D.control_gaussians(
+                        ts.stat, ts.stat_stats, ts.stat_opt,
+                        (seed, it, STAT_POOL), it, flag_s, opt_cfg,
+                        scene_extent, is_dynamic=False, mode=densify_mode,
+                        omega_mask=omega_mask_s, maxbounds=bounds_s[0],
+                        minbounds=bounds_s[1], total_iterations=iterations)
+                dropped_d += nd
+                dropped_s += ns
+                # pool growth on densify pressure (the reference grows its
+                # tensors without bound, gaussian_model.py:1093-1123): new,
+                # padded tensors for the state, its moments and its stats;
+                # the TrainState below is the only holder the loop keeps
+                if pool_growth and (nd > 0 or ns > 0):
+                    if ns > 0:
+                        stat, stat_opt, stat_stats, cap2 = D.grow_pool(
+                            stat, stat_opt, stat_stats, ns,
+                            max_capacity=max_capacity)
+                        if cap2 > ts.stat.capacity:
+                            print(f"[grow] static pool {ts.stat.capacity} -> "
+                                  f"{cap2} at iter {it} ({ns} candidates dropped)")
+                    if nd > 0:
+                        dyn, dyn_opt, dyn_stats, cap2 = D.grow_pool(
+                            dyn, dyn_opt, dyn_stats, nd,
+                            max_capacity=max_capacity)
+                        if cap2 > ts.dyn.capacity:
+                            print(f"[grow] dynamic pool {ts.dyn.capacity} -> "
+                                  f"{cap2} at iter {it} ({nd} candidates dropped)")
+                ts = ts._replace(stat=stat, stat_opt=stat_opt,
+                                 stat_stats=stat_stats, dyn=dyn,
+                                 dyn_opt=dyn_opt, dyn_stats=dyn_stats)
 
-        # densification (helper_train.py:183-289), the dynamic pool first,
-        # each pool with its own split-noise key
-        dyn, dyn_opt, dyn_stats, flag_d, omega_mask_d, nd = \
-            D.control_gaussians(
-                ts.dyn, ts.dyn_stats, ts.dyn_opt, (seed, it, DYN_POOL), it,
-                flag_d, opt_cfg, scene_extent, is_dynamic=True,
-                mode=densify_mode, omega_mask=omega_mask_d,
-                maxbounds=bounds_d[0], minbounds=bounds_d[1],
-                total_iterations=iterations)
-        stat, stat_opt, stat_stats, flag_s, omega_mask_s, ns = \
-            D.control_gaussians(
-                ts.stat, ts.stat_stats, ts.stat_opt, (seed, it, STAT_POOL), it,
-                flag_s, opt_cfg, scene_extent, is_dynamic=False,
-                mode=densify_mode, omega_mask=omega_mask_s,
-                maxbounds=bounds_s[0], minbounds=bounds_s[1],
-                total_iterations=iterations)
-        dropped_d += nd
-        dropped_s += ns
-        # pool growth on densify pressure (the reference grows its tensors
-        # without bound, gaussian_model.py:1093-1123): new, padded tensors
-        # for the state, its moments and its stats; the TrainState below
-        # is the only holder the loop keeps
-        if pool_growth and (nd > 0 or ns > 0):
-            if ns > 0:
-                stat, stat_opt, stat_stats, cap2 = D.grow_pool(
-                    stat, stat_opt, stat_stats, ns, max_capacity=max_capacity)
-                if cap2 > ts.stat.capacity:
-                    print(f"[grow] static pool {ts.stat.capacity} -> "
-                          f"{cap2} at iter {it} ({ns} candidates dropped)")
-            if nd > 0:
-                dyn, dyn_opt, dyn_stats, cap2 = D.grow_pool(
-                    dyn, dyn_opt, dyn_stats, nd, max_capacity=max_capacity)
-                if cap2 > ts.dyn.capacity:
-                    print(f"[grow] dynamic pool {ts.dyn.capacity} -> "
-                          f"{cap2} at iter {it} ({nd} candidates dropped)")
-        ts = ts._replace(stat=stat, stat_opt=stat_opt,
-                         stat_stats=stat_stats, dyn=dyn,
-                         dyn_opt=dyn_opt, dyn_stats=dyn_stats)
-
-        if it % log_every == 0 or it == iterations:
-            m = {k: float(v) for k, v in metrics._asdict().items()}
-            if not np.isfinite(m["loss"]):
-                # fail-stop on NaN like the reference (train.py:681-683)
-                raise FloatingPointError(
-                    f"loss is non-finite at iteration {it}: {m}")
-            m["tile_max"] = int(m.pop("tile_max", 0))
-            tile_max_seen = max(tile_max_seen, m["tile_max"])
-            m["max_per_tile"] = raster_cfg.max_per_tile
-            m["tiles_per_gauss"] = raster_cfg.tiles_per_gauss
-            m.update(iter=it, elapsed=_time.time() - t0,
-                     n_stat=int(ts.stat.num_live()),
-                     n_dyn=int(ts.dyn.num_live()),
-                     densify_dropped_stat=dropped_s,
-                     densify_dropped_dyn=dropped_d)
-            history.append(m)
-            if on_log:
-                on_log(m)
+            if it % log_every == 0 or it == iterations:
+                with obs.span("read"):
+                    m = {k: float(v) for k, v in metrics._asdict().items()}
+                    if not np.isfinite(m["loss"]):
+                        # fail-stop on NaN like the reference
+                        # (train.py:681-683)
+                        raise FloatingPointError(
+                            f"loss is non-finite at iteration {it}: {m}")
+                    m["tile_max"] = int(m.pop("tile_max", 0))
+                    tile_max_seen = max(tile_max_seen, m["tile_max"])
+                    m["max_per_tile"] = raster_cfg.max_per_tile
+                    m["tiles_per_gauss"] = raster_cfg.tiles_per_gauss
+                    m.update(iter=it, elapsed=_time.time() - t0,
+                             n_stat=int(ts.stat.num_live()),
+                             n_dyn=int(ts.dyn.num_live()),
+                             densify_dropped_stat=dropped_s,
+                             densify_dropped_dyn=dropped_d)
+                    history.append(m)
+                if on_log:
+                    on_log(m)
         if eval_every and on_eval and it % eval_every == 0:
-            on_eval(ts, it)
+            with obs.span("eval"):
+                on_eval(ts, it)
         if debug_every and on_debug and (it == 1 or it % debug_every == 0):
-            on_debug(ts, it)
+            with obs.span("debug"):
+                on_debug(ts, it)
         if checkpoint_every and on_checkpoint and it % checkpoint_every == 0:
-            on_checkpoint(ts, it, history)
+            with obs.span("checkpoint"):
+                on_checkpoint(ts, it, history)
     return ts, history

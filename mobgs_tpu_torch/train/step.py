@@ -51,6 +51,7 @@ from mobgs_tpu_torch.parallel import mesh as Mx
 from mobgs_tpu_torch.train import densify, losses
 from mobgs_tpu_torch.train.optim import (AdamState, adam_update, gaussian_lrs,
                                          init_adam)
+from mobgs_tpu_torch.utils import observability as obs
 
 
 class TrainState(NamedTuple):
@@ -340,15 +341,17 @@ def make_train_step(opt_cfg, width: int, height: int, max_time: float,
         with torch.enable_grad(), Mx.gauss_sharded(mesh):
             for p in leaves:
                 p.requires_grad_(True)
-            total, aux = forward(ts.stat, ts.dyn, ts.sandwich, ts.blce,
-                                 offsets, batch)
+            with obs.span("forward"):
+                total, aux = forward(ts.stat, ts.dyn, ts.sandwich, ts.blce,
+                                     offsets, batch)
             if n_data > 1:
                 # the mask term (sums over pixels) and the flow term sum
                 # over the batch's views: this rank's views count n_data
                 # times before the average over data
                 total = total + (n_data - 1) * (aux["mask"] + aux["flow"])
                 aux["mask"], aux["flow"] = n_data * aux["mask"], n_data * aux["flow"]
-            grads = torch.autograd.grad(total, leaves, allow_unused=True)
+            with obs.span("backward"):
+                grads = torch.autograd.grad(total, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)]
         if mesh is not None:
@@ -368,7 +371,7 @@ def make_train_step(opt_cfg, width: int, height: int, max_time: float,
             g_dyn = densify.apply_omega_freeze(G.DiffFields(*g_dyn),
                                                dyn_omega_mask)
 
-        with torch.no_grad():
+        with obs.span("update"), torch.no_grad():
             # densification stats from the view-space gradient
             # (train.py:633-648), accumulated over the batch
             vs_grad = g_off.sum(0) * torch.tensor(

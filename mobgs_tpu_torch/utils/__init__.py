@@ -1,2 +1,2 @@
-"""Timers, run logging, debug image grids and profiler traces."""
+"""Spans and counters of the training path, debug image grids and seeding."""
 from mobgs_tpu_torch.utils import observability  # noqa: F401

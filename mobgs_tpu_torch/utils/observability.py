@@ -1,84 +1,162 @@
-"""Observability: wall-clock timer, run logging, debug image grids and
-profiler traces (port of ``mobgs_tpu/utils/observability.py``).
+"""Spans and counters of the training path, debug image grids and seeding.
 
-Parity targets: ``utils/timer.py`` (a pause/resume timer that leaves
-eval and IO out of the training time), ``helper_train.py:303-309`` (the
-exp_log point-count journal), ``main_utils.py:49-92`` (debug image grids)
-and TensorBoard-optional scalar logging (``train.py:40-45, 871-934``).
-The trace context is ``torch.profiler``'s where the JAX package uses
-``jax.profiler``.
+``span(name)`` marks a stage of the host's work and ``count(name, ...)``
+a quantity, both off by default. Off, a span is one flag check that
+returns a shared null context and a counter site is one ``if``: nothing is
+allocated, launched or synchronised. ``tracing(spans, counters)`` turns
+them on for the process:
+
+- a span aggregates, per path (the names of the open spans joined by
+  ``/``), its count, its total host time and its self time (total less
+  its child spans), by ``time.perf_counter_ns``; while a
+  ``torch.profiler`` runs, it also opens ``record_function("mobgs." +
+  path)``, so the span sits in the profiler's timeline beside the kernels,
+  on the device trace's clock. A span never synchronises: it measures the
+  host's time in a stage, and the device's time comes from the trace;
+- a counter adds host integers at once and keeps device tensors by
+  reference, summed when ``report()`` is taken (outside every span), so
+  counting launches no kernel in the iterations it counts.
+
+``report()`` returns ``{"spans": {path: {"n", "total_s", "self_s"}},
+"counters": {name: int}}``; ``reset()`` clears both. The state is the
+process's, as a profiler's is: one training loop at a time.
+
+``save_debug_grid`` and ``setup_seed`` are the ports of
+``main_utils.py:49-92`` and ``train.py:941-947``.
 """
 
 from __future__ import annotations
 
-import json
+import contextlib
+import functools
 import os
 import random
 import time
-from contextlib import contextmanager
 
 import numpy as np
+import torch
+
+SPANS = False      # spans record
+COUNTING = False   # counter sites count; read as ``if obs.COUNTING:``
+# device tensors a counter holds before they are folded into one sum (a
+# bound on the memory a long run's counters keep)
+FOLD_AT = 4096
+
+_NULL = contextlib.nullcontext()
+_resets = 0         # reset() calls so far: a span open across one is dropped
+_stack: list = []   # paths of the open spans
+_spans: dict = {}   # path -> [n, total ns, ns in child spans]
+_host: dict = {}    # counter -> int
+_device: dict = {}  # (counter, above) -> [folded sum or None, held tensors]
 
 
-class Timer:
-    """Pause/resume wall-clock timer (reference utils/timer.py:2-24)."""
+class _Span:
+    __slots__ = ("path", "rf", "t0", "era")
 
-    def __init__(self):
-        self.start_time = None
-        self.elapsed = 0.0
-        self.paused = False
+    def __init__(self, name: str):
+        self.path = f"{_stack[-1]}/{name}" if _stack else name
+        self.rf = None
+        self.era = _resets
 
-    def start(self):
-        if self.start_time is None or self.paused:
-            self.start_time = time.time()
-            self.paused = False
+    def __enter__(self):
+        _stack.append(self.path)
+        if torch.autograd._profiler_enabled():
+            self.rf = torch.profiler.record_function("mobgs." + self.path)
+            self.rf.__enter__()
+        self.t0 = time.perf_counter_ns()
+        return self
 
-    def pause(self):
-        if not self.paused and self.start_time is not None:
-            self.elapsed += time.time() - self.start_time
-            self.paused = True
+    def __exit__(self, *exc):
+        dt = time.perf_counter_ns() - self.t0
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        if _stack and _stack[-1] == self.path:
+            _stack.pop()
+        if self.era != _resets:
+            return False
+        agg = _spans.setdefault(self.path, [0, 0, 0])
+        agg[0] += 1
+        agg[1] += dt
+        parent = self.path.rpartition("/")[0]
+        if parent:
+            _spans.setdefault(parent, [0, 0, 0])[2] += dt
+        return False
 
-    def get_elapsed_time(self) -> float:
-        if self.paused or self.start_time is None:
-            return self.elapsed
-        return self.elapsed + (time.time() - self.start_time)
+
+def span(name: str):
+    """A context manager that marks the block as the stage ``name``,
+    nested under the spans open around it."""
+    if not SPANS:
+        return _NULL
+    return _Span(name)
 
 
-class RunLogger:
-    """JSONL scalar logger, plus TensorBoard where it imports.
+def spanned(name: str):
+    """Decorator: every call of the function runs in ``span(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
 
-    Scalars always go to ``<dir>/scalars.jsonl`` (greppable, no
-    dependency) and to TensorBoard when ``torch.utils.tensorboard`` loads.
-    """
 
-    def __init__(self, log_dir: str):
-        self.log_dir = log_dir
-        os.makedirs(log_dir, exist_ok=True)
-        self._f = open(os.path.join(log_dir, "scalars.jsonl"), "a")
-        self.tb = None
-        try:
-            from torch.utils.tensorboard import SummaryWriter
-            self.tb = SummaryWriter(log_dir)
-        except ImportError:
-            pass
+def count(name: str, host_int: int | None = None,
+          device_tensor: torch.Tensor | None = None,
+          above: int | None = None):
+    """Add to counter ``name``: a host integer, or the sum of a device
+    tensor's elements (with ``above``, the number of its elements above
+    that value), kept by reference until ``report()``. Call it under ``if
+    COUNTING:``."""
+    if host_int is not None:
+        _host[name] = _host.get(name, 0) + int(host_int)
+    if device_tensor is not None:
+        slot = _device.setdefault((name, above), [None, []])
+        slot[1].append(device_tensor)
+        if len(slot[1]) >= FOLD_AT:
+            slot[:] = [_reduce(slot, above), []]
 
-    def scalars(self, step: int, **kv):
-        rec = {"step": step, **{k: float(v) for k, v in kv.items()}}
-        self._f.write(json.dumps(rec) + "\n")
-        self._f.flush()
-        if self.tb is not None:
-            for k, v in kv.items():
-                self.tb.add_scalar(k, float(v), step)
 
-    def record_points(self, step: int, note: str, n_points: int):
-        """The exp_log journal (helper_train.py:303-309)."""
-        with open(os.path.join(self.log_dir, "exp_log.txt"), "a") as f:
-            f.write(f"iteration {step} {note} {n_points}\n")
+def _reduce(slot: list, above: int | None) -> torch.Tensor:
+    """A counter's device value as one int64 tensor: the folded sum so far
+    plus the held tensors' sum (with ``above``, their elements above it)."""
+    folded, held = slot
+    total = torch.zeros((), dtype=torch.int64) if folded is None else folded
+    if held:
+        x = torch.cat([t.reshape(-1) for t in held])
+        total = total.to(x.device) + (x.sum(dtype=torch.int64) if above is None
+                                      else (x > above).sum(dtype=torch.int64))
+    return total
 
-    def close(self):
-        self._f.close()
-        if self.tb is not None:
-            self.tb.close()
+
+def tracing(spans: bool = True, counters: bool = False):
+    """Turn spans and counters on or off (``tracing(False)``: both off)."""
+    global SPANS, COUNTING
+    SPANS, COUNTING = bool(spans), bool(counters)
+
+
+def reset():
+    """Clear every span and counter recorded so far; a span open now is not
+    recorded when it closes."""
+    global _resets
+    _resets += 1
+    _stack.clear()
+    _spans.clear()
+    _host.clear()
+    _device.clear()
+
+
+def report() -> dict:
+    """What was recorded since the last ``reset()``: per span path its
+    count, total and self host seconds; per counter its value (device
+    values read here, one read per counter)."""
+    spans = {p: dict(n=n, total_s=tot * 1e-9, self_s=(tot - child) * 1e-9)
+             for p, (n, tot, child) in sorted(_spans.items()) if n}
+    counters = dict(_host)
+    for (name, above), slot in _device.items():
+        counters[name] = counters.get(name, 0) + int(_reduce(slot, above))
+    return dict(spans=spans, counters=dict(sorted(counters.items())))
 
 
 def save_debug_grid(path: str, images: dict[str, np.ndarray]):
@@ -96,64 +174,8 @@ def save_debug_grid(path: str, images: dict[str, np.ndarray]):
     Image.fromarray((grid * 255).astype(np.uint8)).save(path)
 
 
-@contextmanager
-def profiler_trace(log_dir: str, enabled: bool = True):
-    """A ``torch.profiler`` trace of the block (host and, where there is a
-    card, device activity), written to ``<log_dir>/trace.json`` for
-    chrome://tracing or Perfetto. Yields the profiler (None when
-    disabled), whose ``key_averages()`` give the times by operator."""
-    if not enabled:
-        yield None
-        return
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
-        yield prof
-    os.makedirs(log_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
 def setup_seed(seed: int):
     """Deterministic seeding (reference train.py:941-947)."""
     random.seed(seed)
     np.random.seed(seed % (2**32))
     return seed
-
-
-# ---------------------------------------------------------------------------
-# Analytic FLOP model for the train step (MFU / roofline reporting), the
-# JAX package's as it is (observability.py:120-160):
-#
-#   projection: per Gaussian slot, the EWA chain (quat->rotmat,
-#     R diag(s^2) R^T, camera transform, Jacobian/cov2d, 2x2 eigen-radii)
-#     ~= 300 flops.
-#   compositing: per (tile-entry, pixel): conic quadratic + exp + alpha
-#     ~= 13, the transmittance prefix ~= 7, channel accumulation 2*C ->
-#     (20 + 2*C) flops over P=256 pixels per intersection entry. The
-#     backward replays the chain: counted as 2x forward.
-#   binning sort: integer key compares, not FLOPs — excluded.
-#
-# Intersections are the post-clamp per-tile entry counts summed over
-# tiles (the compositor is count-bounded, not capacity-bounded).
-# ---------------------------------------------------------------------------
-
-def analytic_step_flops(n_intersections: float, cap_total: int,
-                        n_passes: int, channels: int = 13,
-                        pixels_per_tile: int = 256) -> float:
-    """Total train-step FLOPs (fwd+bwd) under the model above.
-
-    Args:
-      n_intersections: post-clamp (gaussian, tile) pairs for ONE
-        geometry pass (the counts of ops/tiles.bin_gaussians).
-      cap_total: total Gaussian slot capacity projected per pass.
-      n_passes: geometry passes per step (fwd): batch x exposures.
-      channels: composited channel count (9 feat + depth + subset
-        alpha columns).
-    """
-    proj = 300.0 * cap_total
-    comp_fwd = float(n_intersections) * pixels_per_tile * (20.0 + 2.0 * channels)
-    per_pass_fwd_bwd = 3.0 * (proj + comp_fwd)  # bwd ~= 2x fwd
-    return n_passes * per_pass_fwd_bwd

@@ -1,7 +1,7 @@
 """The port's eval modules vs the JAX package's: test-pose alignment
 (``eval/align.py``), test-time pose optimization (``eval/tto.py``), the
-train CLI's debug images (``train/debug_vis.py``) and the observability
-utilities (``utils/observability.py``).
+train CLI's debug images (``train/debug_vis.py``) and the debug grid and
+seeding helpers (``utils/observability.py``).
 
 A world made from a seed with numpy (Gaussians in front of the cameras,
 anisotropic so the pose gradient has substance; BLCE decoders larger than
@@ -267,8 +267,6 @@ def test_render_training_panels_layout(world, tmp_path, with_latents):
 
 
 def test_observability_matches(tmp_path):
-    for args in ((1.2e6, 60_000, 18), (5e5, 1000, 4, 29, 256)):
-        assert obs.analytic_step_flops(*args) == jobs.analytic_step_flops(*args)
     imgs = {"a": np.linspace(0, 1, H * W * 3).reshape(H, W, 3), "b": np.full((H, W), 0.5)}
     obs.save_debug_grid(str(tmp_path / "p.png"), imgs)
     jobs.save_debug_grid(str(tmp_path / "j.png"), imgs)
@@ -277,17 +275,3 @@ def test_observability_matches(tmp_path):
     a = np.random.rand(3)
     jobs.setup_seed(5)
     np.testing.assert_array_equal(a, np.random.rand(3))
-    t0 = obs.Timer()
-    t0.start()
-    t0.pause()
-    paused = t0.get_elapsed_time()
-    assert t0.get_elapsed_time() == paused
-    log = obs.RunLogger(str(tmp_path / "log"))
-    log.scalars(3, loss=0.25)
-    log.record_points(3, "after densify", 17)
-    log.close()
-    assert (tmp_path / "log" / "scalars.jsonl").read_text() == '{"step": 3, "loss": 0.25}\n'
-    assert (tmp_path / "log" / "exp_log.txt").read_text() == "iteration 3 after densify 17\n"
-    with obs.profiler_trace(str(tmp_path / "trace")) as prof:
-        torch.ones(4).sum()
-    assert prof is not None and (tmp_path / "trace" / "trace.json").exists()
