@@ -371,12 +371,12 @@ def composite_plain64():
 
     class Composite64(torch.autograd.Function):
         @staticmethod
-        def forward(ctx, ids, counts, rec, col, ntx, sub, tile0):
+        def forward(ctx, ids, counts, rec, col, ntx, sub, tile0, tpv):
             out, out2 = cuda_raster.composite_tiles_plain(ids, counts, rec.double(),
                                                           col.double(), ntx, sub,
-                                                          tile0=tile0)
+                                                          tile0=tile0, tpv=tpv)
             ctx.save_for_backward(ids, counts, rec, col, out, out2)
-            ctx.ntx, ctx.sub, ctx.tile0 = ntx, sub, tile0
+            ctx.ntx, ctx.sub, ctx.tile0, ctx.tpv = ntx, sub, tile0, tpv
             return (out.float(), out2.float()) if sub else out.float()
 
         @staticmethod
@@ -384,11 +384,11 @@ def composite_plain64():
             ids, counts, rec, col, out, out2 = ctx.saved_tensors
             grad_rec, grad_col = cuda_raster.composite_bwd_plain(
                 ids, counts, rec.double(), col.double(), out, out2, g.double(),
-                None if g2 is None else g2.double(), ctx.ntx, ctx.sub, ctx.tile0)
-            return None, None, grad_rec.float(), grad_col.float(), None, None, None
+                None if g2 is None else g2.double(), ctx.ntx, ctx.sub, ctx.tile0, ctx.tpv)
+            return None, None, grad_rec.float(), grad_col.float(), None, None, None, None
 
-    def plain64(ids, counts, rec, col, ntx, sub=False, tile0=0):
-        res = Composite64.apply(ids, counts, rec, col, ntx, sub, tile0)
+    def plain64(ids, counts, rec, col, ntx, sub=False, tile0=0, tpv=None):
+        res = Composite64.apply(ids, counts, rec, col, ntx, sub, tile0, tpv)
         return res if sub else (res, None)
     return plain64
 
@@ -1411,9 +1411,9 @@ def library_phase(dev, card, times, protocol):
     viewmats, Ks = on(data.w2c[:1]), on(data.K[:1])
     shim_launches, operands = {}, {}
 
-    def recording_plain(ids, counts, rec, col, ntx, sub=False, tile0=0):
+    def recording_plain(ids, counts, rec, col, ntx, sub=False, tile0=0, tpv=None):
         operands[col.shape[1]] = (ids, counts, rec.detach(), col.detach(), ntx)
-        return real_plain(ids, counts, rec, col, ntx, sub, tile0)
+        return real_plain(ids, counts, rec, col, ntx, sub, tile0, tpv)
 
     real_plain = cuda_raster.composite_plain
     for C, mode in SHIM_MODES:
@@ -2475,9 +2475,10 @@ def main():
     times["step_check_s"] = time.time() - t0
 
     phase("9 train")
-    # per view: E-1 latent renders (plain chain) and the mid render (sub chain)
-    per_step = {"raster_fwd": B_VIEWS * (E_WARP - 1), "raster_fwd_sub": B_VIEWS,
-                "raster_bwd": B_VIEWS * (E_WARP - 1), "raster_bwd_sub": B_VIEWS}
+    # per view: the E-1 latent renders in one launch (plain chain) and the mid
+    # render (sub chain)
+    per_step = {"raster_fwd": B_VIEWS, "raster_fwd_sub": B_VIEWS,
+                "raster_bwd": B_VIEWS, "raster_bwd_sub": B_VIEWS}
     step_fn = S.make_train_step(opt, W, H, data.max_time, E_WARP, cfg)
     ts, rates["train_it_s"], train_launches, _, _ = train_steps(
         step_fn, ts, sampler, N_WARM, N_STEPS, "flow off", per_step)
@@ -2506,7 +2507,7 @@ def main():
     torch.cuda.synchronize()
     e11_launches, e11_instances = dict(cuda_raster.launches), dict(cuda_raster.instance_launches)
     n_groups = len(cuda_raster.column_groups(2 * e_w + 11))
-    want = {"raster_fwd": B_VIEWS * (e_w - 1),
+    want = {"raster_fwd": B_VIEWS,
             "raster_fwd_sub": B_VIEWS * (e_w - 1) + B_VIEWS * n_groups}
     want.update(raster_bwd=want["raster_fwd"], raster_bwd_sub=want["raster_fwd_sub"])
     print(f"one E={e_w} flow-on step through the kernels: loss {float(m_w.loss)!r}, "
@@ -2517,10 +2518,10 @@ def main():
     times["flow_step_check_s"] = time.time() - t0
 
     phase("11 flow-on train")
-    # per view: E-1 latent renders (plain chain); E-1 exposure-flow passes and
-    # the mid render with 2E flow columns (sub chain)
-    per_step_f = {"raster_fwd": B_VIEWS * (E_WARP - 1), "raster_fwd_sub": B_VIEWS * E_WARP,
-                  "raster_bwd": B_VIEWS * (E_WARP - 1), "raster_bwd_sub": B_VIEWS * E_WARP}
+    # per view: the E-1 latent renders in one launch (plain chain); E-1
+    # exposure-flow passes and the mid render with 2E flow columns (sub chain)
+    per_step_f = {"raster_fwd": B_VIEWS, "raster_fwd_sub": B_VIEWS * E_WARP,
+                  "raster_bwd": B_VIEWS, "raster_bwd_sub": B_VIEWS * E_WARP}
     flow_fn = S.make_train_step(opt_flow, W, H, data.max_time, E_WARP, cfg)
     ts_f, rates["train_it_s_flow_on"], flow_launches, flow_instances, hist = train_steps(
         flow_fn, ts_f, sampler_f, N_FLOW_WARM, N_FLOW_STEPS, "flow on", per_step_f)

@@ -39,34 +39,37 @@ def eval_spline(control: torch.Tensor, t, n: torch.Tensor) -> torch.Tensor:
 
     Args:
       control: ``[P, K, C]`` control points (K = max knot capacity).
-      t: scalar, ``[P]`` or ``[P, 1]`` normalized time in [0, 1].
+      t: scalar, ``[P]`` or ``[P, 1]`` normalized time in [0, 1]; or
+        ``[V, 1, 1]``, V times at which every point is evaluated.
       n: ``[P]`` or ``[P, 1]`` int live knot count per point (4 ≤ n ≤ K).
 
     Returns:
-      ``[P, C]`` interpolated values.
+      ``[P, C]`` interpolated values (``[V, P, C]`` for V times).
     """
     P, K, C = control.shape
     t = torch.as_tensor(t, dtype=control.dtype, device=control.device)
-    t = t.reshape(-1).expand(P) if t.ndim else t.expand(P)
+    lead = tuple(t.shape[:-2]) if t.ndim > 2 else ()
+    t = t.reshape(lead + (-1,)).expand(lead + (P,)) if t.ndim else t.expand(P)
     n = torch.as_tensor(n, device=control.device).to(torch.int32)
     n = n.reshape(-1).expand(P)
 
-    ts = t * (n - 1).to(control.dtype)  # [P]
+    ts = t * (n - 1).to(control.dtype)  # [..., P]
     idx, left, right, rright = _segment_indices(ts, n)
 
-    def take(i):  # [P] -> [P, C]
-        return torch.gather(control, 1,
-                            i.long()[:, None, None].expand(P, 1, C))[:, 0, :]
+    def take(i):  # [..., P] -> [..., P, C]
+        j = i.long().reshape(-1, P).T                                 # [P, L]
+        out = torch.gather(control, 1, j[:, :, None].expand(P, j.shape[1], C))
+        return out.transpose(0, 1).reshape(i.shape + (C,))
 
     p0, p1, p2, p3 = take(left), take(idx), take(right), take(rright)
 
     # one-sided derivatives at segment boundaries
-    at_left_edge = (left == idx)[:, None]
-    at_right_edge = (rright == right)[:, None]
+    at_left_edge = (left == idx)[..., None]
+    at_right_edge = (rright == right)[..., None]
     m0 = torch.where(at_left_edge, p2 - p1, (p2 - p0) * 0.5)
     m1 = torch.where(at_right_edge, p2 - p1, (p3 - p1) * 0.5)
 
-    tfrac = (ts - idx.to(control.dtype))[:, None]
+    tfrac = (ts - idx.to(control.dtype))[..., None]
     h00, h10, h01, h11 = hermite_basis(tfrac)
     return h00 * p1 + h10 * m0 + h01 * p2 + h11 * m1
 

@@ -62,7 +62,11 @@
 // of its first block. The operands (ids, counts, out, out2, g, g2) hold the
 // range's rows, indexed by blockIdx.x; the pixel origin comes from the
 // image tile tile0 + blockIdx.x (the Pallas kernels' global tile id, column
-// 1 of their SMEM counts, pallas_raster.py:613-619).
+// 1 of their SMEM counts, pallas_raster.py:613-619). Over several views of
+// one size the rows are the views' tiles in turn, and the pixel origin is
+// that of the row modulo tpv, the tile count of one view, as in the
+// forward; each view's ids point at its own rows of rec and col, so its
+// gradients land in its own rows of grad_rec and grad_col.
 //
 // Occupancy. Shared memory is dynamic, sized to CE and ch: at the
 // protocol's widths (ch = 128) 42 KB for CE = 9 and 39 KB for CE = 11 with
@@ -157,7 +161,7 @@ raster_bwd_kernel(const int32_t* __restrict__ ids,     // [T, K]
                   const float* __restrict__ g2,        // [T, P] (SUB only)
                   float* __restrict__ grad_rec,        // [N, R], zeroed
                   float* __restrict__ grad_col,        // [N, CE], zeroed
-                  int K, int CE, int ntx, int tile0, int ch) {
+                  int K, int CE, int ntx, int tile0, int tpv, int ch) {
   constexpr int S = Shape<SUB>::S, NA = Shape<SUB>::NA, ROWS = Shape<SUB>::ROWS;
   constexpr int WPS = WARPS / S;  // warps per slot in phase B
   extern __shared__ float smem[];
@@ -176,7 +180,7 @@ raster_bwd_kernel(const int32_t* __restrict__ ids,     // [T, K]
   int* s_hit = reinterpret_cast<int*>(s_scr + scratch_words<SUB>(CE));  // [2][S]
 
   const int tile = blockIdx.x;     // this launch's tile: its operands' row
-  const int gtile = tile0 + tile;  // the image's tile: its pixels
+  const int gtile = (tile0 + tile) % tpv;  // its view's tile: its pixels
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -389,7 +393,7 @@ raster_bwd_kernel(const int32_t* __restrict__ ids,     // [T, K]
 using KernelFn = void (*)(const int32_t*, const int32_t*, const float*,
                           const float*, const float*, const float*,
                           const float*, const float*, float*, float*, int, int,
-                          int, int, int);
+                          int, int, int, int);
 
 KernelFn pick(int CE, bool sub) {
   if (sub)
@@ -425,9 +429,9 @@ extern "C" int raster_bwd(const void* ids, const void* counts, const void* rec,
                           const void* col, const void* out, const void* out2,
                           const void* g, const void* g2, void* grad_rec,
                           void* grad_col, int T, int K, int CE, int ntx,
-                          int tile0, int ch, int sub, void* stream) {
+                          int tile0, int tpv, int ch, int sub, void* stream) {
   if (T <= 0) return 0;
-  if (bad_shape(CE, ch) || K % ch != 0 || ntx < 1 || tile0 < 0 ||
+  if (bad_shape(CE, ch) || K % ch != 0 || ntx < 1 || tile0 < 0 || tpv < 1 ||
       (sub && (out2 == nullptr || g2 == nullptr)))
     return (int)cudaErrorInvalidValue;
   const KernelFn k = pick(CE, sub != 0);
@@ -440,7 +444,7 @@ extern "C" int raster_bwd(const void* ids, const void* counts, const void* rec,
       static_cast<const float*>(out), static_cast<const float*>(out2),
       static_cast<const float*>(g), static_cast<const float*>(g2),
       static_cast<float*>(grad_rec), static_cast<float*>(grad_col), K, CE, ntx,
-      tile0, ch);
+      tile0, tpv, ch);
   return (int)cudaGetLastError();
 }
 

@@ -86,6 +86,13 @@
 // global tile id in column 1 of their SMEM counts (pallas_raster.py:613-619)
 // so that a shard of the tile axis composites its own pixels. With
 // tile0 = 0 over all tiles the output is that of one launch per image.
+// A launch may also cover several views of one size: the rows are then
+// the views' tiles in turn (view v's tile t at row v * tpv + t, where tpv
+// is the tile count of one view), and a block's pixel origin is that of
+// its row modulo tpv. The records and colours of all views lie in one
+// table, each view's ids pointing at its own rows, so a block reads and
+// writes only its view's. Over one view (every row below tpv) the modulo
+// changes nothing, and the launch is the one-view launch.
 // Plain C interface for ctypes: the entry point returns cudaGetLastError()
 // after the launch.
 
@@ -231,7 +238,7 @@ raster_fwd_kernel(const int32_t* __restrict__ ids,     // [T, K]
                   const float* __restrict__ col,       // [N, CE]
                   float* __restrict__ out,             // [T, P, CE]
                   float* __restrict__ out2,            // [T, P] (SUB only)
-                  int K, int CE, int ntx, int tile0, int ch) {
+                  int K, int CE, int ntx, int tile0, int tpv, int ch) {
   constexpr int PPT = FwdShape<CEM, SUB>::PPT, CES = FwdShape<CEM, SUB>::CES;
   constexpr bool REG_COL = FwdShape<CEM, SUB>::REG_COL;
   __shared__ float4 s_rec[2 * CH_MAX];  // mx, my, a, b | c, o, o_sub, pad
@@ -239,7 +246,7 @@ raster_fwd_kernel(const int32_t* __restrict__ ids,     // [T, K]
 
   const int ce = EXACT ? CEM : CE;
   const int tile = blockIdx.x;     // this launch's tile: its operands' row
-  const int gtile = tile0 + tile;  // the image's tile: its pixels
+  const int gtile = (tile0 + tile) % tpv;  // its view's tile: its pixels
   const int tid = threadIdx.x;
   const int count = counts[tile];
   const int x = tid % TILE;
@@ -355,7 +362,7 @@ raster_fwd_kernel(const int32_t* __restrict__ ids,     // [T, K]
 }
 
 using KernelFn = void (*)(const int32_t*, const int32_t*, const float*,
-                          const float*, float*, float*, int, int, int, int, int);
+                          const float*, float*, float*, int, int, int, int, int, int);
 
 // The instance a launch with CE channels takes, and its block size.
 template <bool SUB>
@@ -392,9 +399,10 @@ bool bad_shape(int CE, int ch) {
 
 extern "C" int raster_fwd(const void* ids, const void* counts, const void* rec,
                           const void* col, void* out, void* out2, int T, int K,
-                          int CE, int ntx, int tile0, int ch, int sub, void* stream) {
+                          int CE, int ntx, int tile0, int tpv, int ch, int sub,
+                          void* stream) {
   if (T <= 0) return 0;
-  if (bad_shape(CE, ch) || K % ch != 0 || ntx < 1 || tile0 < 0 ||
+  if (bad_shape(CE, ch) || K % ch != 0 || ntx < 1 || tile0 < 0 || tpv < 1 ||
       (sub && out2 == nullptr))
     return (int)cudaErrorInvalidValue;
   // records are copied 16 bytes at a time
@@ -405,7 +413,7 @@ extern "C" int raster_fwd(const void* ids, const void* counts, const void* rec,
   k<<<T, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(ids), static_cast<const int32_t*>(counts),
       static_cast<const float*>(rec), static_cast<const float*>(col),
-      static_cast<float*>(out), static_cast<float*>(out2), K, CE, ntx, tile0, ch);
+      static_cast<float*>(out), static_cast<float*>(out2), K, CE, ntx, tile0, tpv, ch);
   return (int)cudaGetLastError();
 }
 

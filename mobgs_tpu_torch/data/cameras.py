@@ -46,10 +46,15 @@ def pixel_grid(width: int, height: int, use_center: bool = False,
 
 def cam_rays(cam: Camera, width: int, height: int) -> torch.Tensor:
     """Per-pixel [H, W, 6] (origin‖world viewdir), parity with
-    `scene/cameras.py:132-146` (consumed by the Sandwich decoder)."""
-    c2w = se3.view_to_world(cam.w2c)
-    origin = c2w[:3, 3]
-    R = c2w[:3, :3]
+    `scene/cameras.py:132-146` (consumed by the Sandwich decoder); [V, H,
+    W, 6] for V poses ``cam.w2c`` [V, 4, 4] of one intrinsics, each view's
+    rays equal to its own call's."""
+    if cam.w2c.ndim == 2:
+        c2w = se3.view_to_world(cam.w2c)
+    else:  # each pose inverted alone: its [3, 3] @ [3, 1] rounds as one call's
+        c2w = torch.stack([se3.view_to_world(w) for w in cam.w2c])
+    origin = c2w[..., :3, 3]
+    R = c2w[..., :3, :3]
     pix = pixel_grid(width, height, use_center=True, device=cam.w2c.device)
     fx, fy = cam.K[0, 0], cam.K[1, 1]
     cx, cy = cam.K[0, 2], cam.K[1, 2]
@@ -57,7 +62,11 @@ def cam_rays(cam: Camera, width: int, height: int) -> torch.Tensor:
     y = (pix[..., 1] - cy) / fy
     local = torch.stack([x, y, torch.ones_like(x)], dim=-1)
     local = se3.normalize(local)
-    world = local @ R.T
+    if R.ndim == 2:
+        world = local @ R.T
+    else:  # per pose, as ops/projection.py takes the products with a rotation
+        world = torch.stack([local @ r.T for r in R])
+        origin = origin[:, None, None]
     world = se3.normalize(world)
     org = origin.expand(world.shape)
     return torch.cat([org, world], dim=-1)

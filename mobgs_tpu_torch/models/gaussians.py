@@ -127,8 +127,11 @@ def rotation_at(state: GaussianState, dt: torch.Tensor) -> torch.Tensor:
 
 
 def features_at(state: GaussianState, dt) -> torch.Tensor:
-    """[dc ‖ Δt·f_t] 9-channel features (reference get_features :241)."""
-    return torch.cat([state.features_dc, dt * state.features_t], dim=1)
+    """[dc ‖ Δt·f_t] 9-channel features (reference get_features :241);
+    ``[V, M, 9]`` for a ``[V, M, 1]`` Δt."""
+    ft = dt * state.features_t
+    dc = state.features_dc
+    return torch.cat([dc.expand(ft.shape[:-1] + dc.shape[-1:]), ft], dim=-1)
 
 
 def positions_at(state: GaussianState, t) -> torch.Tensor:
@@ -138,7 +141,8 @@ def positions_at(state: GaussianState, t) -> torch.Tensor:
 
 
 def time_offset(state: GaussianState, t) -> torch.Tensor:
-    """Δt = t - trbf_center, per point, [M, 1]."""
+    """Δt = t - trbf_center, per point, [M, 1] ([V, M, 1] for V times
+    [V, 1, 1])."""
     t = torch.as_tensor(t, dtype=state.trbf_center.dtype,
                         device=state.trbf_center.device)
     return t - state.trbf_center

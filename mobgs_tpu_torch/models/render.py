@@ -8,10 +8,18 @@ columns. With ``shared=`` (``make_shared_view``) the static pool's
 projection and binning are made once per camera and reused by every pass
 at that camera, only the dynamic rows projected and merged per pass.
 
+The train step's latent renders of a view, V cameras at one time with
+V exposure shifts, run as one batched pass (``render_latents``): the
+static half assembled once, the dynamic half at the V times in one
+broadcast evaluation, the V cameras projected together, each binned on
+its own, one composite launch over all their tiles and one decode; each
+view's features equal its own ``render_view`` call's to the bit.
+
 The entries the train step and the exposure update call (``render_view``,
-``get_flow_static``, ``make_shared_view``, ``project_dyn2d``,
-``project_combined``, ``assemble_project``) run in the span ``render``
-(``utils/observability.py``); a nested call in its own, one level down.
+``render_latents``, ``get_flow_static``, ``make_shared_view``,
+``project_dyn2d``, ``project_combined``, ``assemble_project``) run in the
+span ``render`` (``utils/observability.py``); a nested call in its own, one
+level down.
 """
 
 from __future__ import annotations
@@ -23,7 +31,7 @@ import torch
 from mobgs_tpu_torch.data.cameras import Camera, cam_rays, pixel_grid
 from mobgs_tpu_torch.models import gaussians as G
 from mobgs_tpu_torch.models.sandwich import SandwichParams, apply_sandwich
-from mobgs_tpu_torch.ops import projection
+from mobgs_tpu_torch.ops import cuda_raster, projection, tiles
 from mobgs_tpu_torch.ops.rasterize import (RasterConfig, RasterOut,
                                            make_shared_static, rasterize)
 from mobgs_tpu_torch.utils import observability as obs
@@ -238,6 +246,63 @@ def render_view(stat: G.GaussianState, dyn: G.GaussianState,
                      feat=out.images[0, ..., :9],
                      means2d=out.means2d, radii=out.radii, flow=flow,
                      tile_max=out.tile_max)
+
+
+class LatentOut(NamedTuple):
+    images: torch.Tensor    # [V, H, W, 3] decoded RGB, one a camera
+    feat: torch.Tensor      # [V, H, W, 9] raw features (pre-decoder)
+    tile_max: torch.Tensor  # pre-clamp peak tile occupancy over the views
+
+
+@obs.spanned("render")
+def render_latents(stat: G.GaussianState, dyn: G.GaussianState,
+                   sandwich: SandwichParams, w2c: torch.Tensor, K: torch.Tensor,
+                   time, width: int, height: int, max_time: float = 1.0,
+                   delta_exposure: torch.Tensor | None = None,
+                   config: RasterConfig = RasterConfig()) -> LatentOut:
+    """V image-only renders at one time in one pass: camera v at ``w2c[v]``
+    and exposure shift ``delta_exposure[v]`` ([V], or None for none), with
+    no background, depth or weight columns. Each view's features are those
+    of ``render_view(..., Camera(w2c[v], K, time), ..., delta_exposure[v],
+    want_depth=False, want_alpha=False)`` to the bit, from the same float
+    operations: the static half assembled once and the dynamic half at the
+    V times over a leading view axis; projection over it
+    (``ops/projection.py``); each view binned on its own
+    (``ops/tiles.py::bin_views``); one composite launch over the V views'
+    tiles (``ops/cuda_raster.py``). One decode with each camera's rays
+    follows; its [V·H·W, 12] @ [12, 6] product may take another cuBLAS
+    kernel than one view's, and round some values in their last place (on
+    the CPU it gives the calls' bits).
+
+    Counters (while counting is on): ``render.latent_calls`` one a call,
+    ``render.latent_views`` its V."""
+    V = w2c.shape[0]
+    if obs.COUNTING:
+        obs.count("render.latent_calls", host_int=1)
+        obs.count("render.latent_views", host_int=V)
+    if delta_exposure is None:
+        dyn_rows = assemble_dyn(dyn, time, max_time)
+    else:
+        dyn_rows = assemble_dyn(dyn, time, max_time, delta_exposure.reshape(V, 1, 1))
+
+    def per_view(s, d):  # [V, N, ...]: the static rows, then the view's dynamic
+        d = d if d.ndim > s.ndim else d.expand((V,) + d.shape)
+        return torch.cat([s.expand((V,) + s.shape), d], dim=1)
+
+    means, quats, scales, opac, colors = (
+        per_view(s, d) for s, d in zip(assemble_static(stat), dyn_rows))
+    splats = projection.project(means, quats, scales, w2c, K, width, height,
+                                eps2d=config.eps2d, near=config.near,
+                                sigma_cut=config.sigma_cut)
+    bins = tiles.bin_views(projection.ProjectedSplats(*(x.detach() for x in splats)),
+                           width, height, tiles_per_gauss=config.tiles_per_gauss,
+                           max_per_tile=config.max_per_tile)
+    feat = cuda_raster.composite_tiles(bins, splats, colors, opac, width, height,
+                                       want_depth=False, want_alpha=False,
+                                       backend=config.backend)[0]
+    rays = cam_rays(Camera(w2c=w2c, K=K, time=time), width, height)
+    return LatentOut(images=apply_sandwich(sandwich, feat, rays), feat=feat,
+                     tile_max=bins.max_count)
 
 
 @obs.spanned("render")

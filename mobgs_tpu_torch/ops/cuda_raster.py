@@ -44,7 +44,9 @@ chunks, the chunk-level early exit per tile — and process all tiles at
 once. They serve CPU tensors (and ``backend="plain"``);
 :func:`composite_fwd` and :func:`composite_bwd` launch the kernels for CUDA
 tensors or raise; past 32 colour columns they launch them once per column
-group (:func:`column_groups`). Gradients reach ``rec`` and ``col`` through one
+group (:func:`column_groups`). One launch may composite several views of
+one size, their tiles stacked along the rows (``tpv`` tiles a view): the
+train step's latent renders of a view go as one launch of E-1 views. Gradients reach ``rec`` and ``col`` through one
 ``torch.autograd.Function`` per route: the kernels' for CUDA tensors, the
 plain backward's for the plain route, never autograd through the plain
 forward's ops.
@@ -182,7 +184,7 @@ def _library(name: str) -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         fn = getattr(lib, name)
         n_ptr = 6 if name == "raster_fwd" else 10
-        fn.argtypes = [vp] * n_ptr + [ci] * 7 + [vp]
+        fn.argtypes = [vp] * n_ptr + [ci] * 8 + [vp]
         fn.restype = ci
         occ = getattr(lib, f"{name}_occupancy")
         occ.argtypes = [ci, ci, ci, vp]
@@ -251,24 +253,33 @@ def column_groups(CE: int) -> list[tuple[int, int]]:
     return bounds
 
 
-def _launch(ids, counts, rec, col, ntx: int, sub: bool, tile0: int = 0):
+def _tiles_per_view(T: int, tile0: int, tpv: int | None) -> int:
+    """The tile count of one view a launch takes: ``tpv``, or for a launch
+    over (a range of) one view's tiles, one past its last tile."""
+    return tile0 + T if tpv is None else tpv
+
+
+def _launch(ids, counts, rec, col, ntx: int, sub: bool, tile0: int = 0,
+            tpv: int | None = None):
     """Launch the forward kernel on the current stream, once per column
     group (:func:`column_groups`), over the tiles [tile0, tile0 + T) of the
-    image (``ids`` and ``counts`` hold those rows); returns (out,
-    out2|None)."""
+    image (``ids`` and ``counts`` hold those rows), or over views of ``tpv``
+    tiles each stacked along the rows; returns (out, out2|None)."""
     _check_operands("raster_fwd", ids, counts, rec, col)
     if rec.data_ptr() % 16:
         raise ValueError("raster_fwd: rec is not 16-byte aligned (records "
                          "are copied 16 bytes at a time)")
     outs, out2 = [], None
     for a, b in column_groups(col.shape[1]):
-        o, o2 = _launch_group(ids, counts, rec, col[:, a:b].contiguous(), ntx, sub, tile0)
+        o, o2 = _launch_group(ids, counts, rec, col[:, a:b].contiguous(), ntx, sub, tile0,
+                              tpv)
         outs.append(o)
         out2 = o2 if out2 is None else out2
     return (outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)), out2
 
 
-def _launch_group(ids, counts, rec, col, ntx: int, sub: bool, tile0: int = 0):
+def _launch_group(ids, counts, rec, col, ntx: int, sub: bool, tile0: int = 0,
+                  tpv: int | None = None):
     T, K = ids.shape
     CE = col.shape[1]
     dev = rec.device
@@ -279,7 +290,8 @@ def _launch_group(ids, counts, rec, col, ntx: int, sub: bool, tile0: int = 0):
         err = lib.raster_fwd(ids.data_ptr(), counts.data_ptr(),
                              rec.data_ptr(), col.data_ptr(), out.data_ptr(),
                              out2.data_ptr() if sub else None,
-                             T, K, CE, ntx, tile0, _pick_chunk(K), int(sub), _stream(dev))
+                             T, K, CE, ntx, tile0, _tiles_per_view(T, tile0, tpv),
+                             _pick_chunk(K), int(sub), _stream(dev))
     if err != 0:
         raise RuntimeError(f"raster_fwd launch failed: CUDA error {err}")
     _count("raster_fwd_sub" if sub else "raster_fwd", CE)
@@ -287,10 +299,11 @@ def _launch_group(ids, counts, rec, col, ntx: int, sub: bool, tile0: int = 0):
 
 
 def _launch_bwd(ids, counts, rec, col, out, out2, g, g2, ntx: int, sub: bool,
-                tile0: int = 0):
+                tile0: int = 0, tpv: int | None = None):
     """Launch the backward kernel on the current stream, once per column
     group (:func:`column_groups`), over the tiles [tile0, tile0 + T) of the
-    image; returns (grad_rec [N, R], grad_col [N, CE])."""
+    image, or over views of ``tpv`` tiles each; returns (grad_rec [N, R],
+    grad_col [N, CE])."""
     T, K = ids.shape
     N, CE = col.shape
     pixel = [("out", out, (T, P, CE)), ("g", g, (T, P, CE))]
@@ -302,14 +315,14 @@ def _launch_bwd(ids, counts, rec, col, out, out2, g, g2, ntx: int, sub: bool,
         gr, gc = _launch_bwd_group(
             ids, counts, rec, col[:, a:b].contiguous(), out[..., a:b].contiguous(),
             out2, g[..., a:b].contiguous(),
-            g2 if i == 0 or g2 is None else torch.zeros_like(g2), ntx, sub, tile0)
+            g2 if i == 0 or g2 is None else torch.zeros_like(g2), ntx, sub, tile0, tpv)
         grad_rec = gr if grad_rec is None else grad_rec + gr
         grad_cols.append(gc)
     return grad_rec, grad_cols[0] if len(grad_cols) == 1 else torch.cat(grad_cols, dim=1)
 
 
 def _launch_bwd_group(ids, counts, rec, col, out, out2, g, g2, ntx: int, sub: bool,
-                      tile0: int = 0):
+                      tile0: int = 0, tpv: int | None = None):
     T, K = ids.shape
     N, CE = col.shape
     dev = rec.device
@@ -322,7 +335,8 @@ def _launch_bwd_group(ids, counts, rec, col, out, out2, g, g2, ntx: int, sub: bo
                              out2.data_ptr() if sub else None, g.data_ptr(),
                              g2.data_ptr() if sub else None,
                              grad_rec.data_ptr(), grad_col.data_ptr(),
-                             T, K, CE, ntx, tile0, _pick_chunk(K), int(sub), _stream(dev))
+                             T, K, CE, ntx, tile0, _tiles_per_view(T, tile0, tpv),
+                             _pick_chunk(K), int(sub), _stream(dev))
     if err != 0:
         raise RuntimeError(f"raster_bwd launch failed: CUDA error {err}")
     _count("raster_bwd_sub" if sub else "raster_bwd", CE)
@@ -359,10 +373,10 @@ class _CompositeCuda(torch.autograd.Function):
     """The kernels' route: forward kernel, backward kernel."""
 
     @staticmethod
-    def forward(ctx, ids, counts, rec, col, ntx, sub, tile0=0):
-        out, out2 = _launch(ids, counts, rec, col, ntx, sub, tile0)
+    def forward(ctx, ids, counts, rec, col, ntx, sub, tile0=0, tpv=None):
+        out, out2 = _launch(ids, counts, rec, col, ntx, sub, tile0, tpv)
         ctx.save_for_backward(ids, counts, rec, col, out, out2)
-        ctx.ntx, ctx.sub, ctx.tile0 = ntx, sub, tile0
+        ctx.ntx, ctx.sub, ctx.tile0, ctx.tpv = ntx, sub, tile0, tpv
         return (out, out2) if sub else out
 
     @staticmethod
@@ -370,8 +384,9 @@ class _CompositeCuda(torch.autograd.Function):
         ids, counts, rec, col, out, out2 = ctx.saved_tensors
         g2 = g2.contiguous() if ctx.sub else None
         grad_rec, grad_col = _launch_bwd(ids, counts, rec, col, out, out2,
-                                         g.contiguous(), g2, ctx.ntx, ctx.sub, ctx.tile0)
-        return None, None, grad_rec, grad_col, None, None, None
+                                         g.contiguous(), g2, ctx.ntx, ctx.sub, ctx.tile0,
+                                         ctx.tpv)
+        return None, None, grad_rec, grad_col, None, None, None, None
 
 
 class _CompositePlain(torch.autograd.Function):
@@ -380,10 +395,11 @@ class _CompositePlain(torch.autograd.Function):
     against), on any device."""
 
     @staticmethod
-    def forward(ctx, ids, counts, rec, col, ntx, sub, tile0=0):
-        out, out2 = composite_tiles_plain(ids, counts, rec, col, ntx, sub, tile0=tile0)
+    def forward(ctx, ids, counts, rec, col, ntx, sub, tile0=0, tpv=None):
+        out, out2 = composite_tiles_plain(ids, counts, rec, col, ntx, sub, tile0=tile0,
+                                          tpv=tpv)
         ctx.save_for_backward(ids, counts, rec, col, out, out2)
-        ctx.ntx, ctx.sub, ctx.tile0 = ntx, sub, tile0
+        ctx.ntx, ctx.sub, ctx.tile0, ctx.tpv = ntx, sub, tile0, tpv
         return (out, out2) if sub else out
 
     @staticmethod
@@ -391,18 +407,18 @@ class _CompositePlain(torch.autograd.Function):
         ids, counts, rec, col, out, out2 = ctx.saved_tensors
         grad_rec, grad_col = composite_bwd_plain(ids, counts, rec, col, out,
                                                  out2, g, g2, ctx.ntx, ctx.sub,
-                                                 ctx.tile0)
-        return None, None, grad_rec, grad_col, None, None, None
+                                                 ctx.tile0, ctx.tpv)
+        return None, None, grad_rec, grad_col, None, None, None, None
 
 
 # ---------------------------------------------------------------------------
 # the plain version
 
-def _tile_pixels(T: int, ntx: int, tile0: int, dt, dev):
+def _tile_pixels(T: int, ntx: int, tile0: int, dt, dev, tpv: int | None = None):
     """Pixel centres (px, py), each [T, 1, P], of the image tiles
-    [tile0, tile0 + T)."""
+    [tile0, tile0 + T), or of the rows of views of ``tpv`` tiles each."""
     lin = torch.arange(P, device=dev)
-    tile = torch.arange(tile0, tile0 + T, device=dev)
+    tile = torch.arange(tile0, tile0 + T, device=dev) % _tiles_per_view(T, tile0, tpv)
     px = ((lin % TILE).to(dt) + 0.5)[None, None, :] \
         + ((tile % ntx) * TILE).to(dt)[:, None, None]
     py = ((lin // TILE).to(dt) + 0.5)[None, None, :] \
@@ -413,7 +429,7 @@ def _tile_pixels(T: int, ntx: int, tile0: int, dt, dev):
 def composite_tiles_plain(ids: torch.Tensor, counts: torch.Tensor,
                           rec: torch.Tensor, col: torch.Tensor, ntx: int,
                           sub: bool = False, work: dict | None = None,
-                          tile0: int = 0):
+                          tile0: int = 0, tpv: int | None = None):
     """Plain PyTorch version of the kernel, with the Pallas semantics.
 
     Args:
@@ -427,6 +443,9 @@ def composite_tiles_plain(ids: torch.Tensor, counts: torch.Tensor,
       sub: also run the subset-opacity chain (record column 6).
       tile0: the image tile of row 0: ``ids`` and ``counts`` hold the
         tiles [tile0, tile0 + T) of the image (a shard of the tile axis).
+      tpv: the tile count of one view, where the rows hold several views
+        of one size in turn (view v's tile t at row v * tpv + t, its ids
+        pointing at its own rows of ``rec`` and ``col``); None for one view.
       work: when a dict, receives what this input needed: ``slots`` [T],
         the live slots each tile composited before its early exit;
         ``valid`` / ``valid_sub``, the (slot, pixel) pairs whose alpha
@@ -440,7 +459,7 @@ def composite_tiles_plain(ids: torch.Tensor, counts: torch.Tensor,
     ch = _pick_chunk(K)
     dev = rec.device
     dt = rec.dtype
-    px, py = _tile_pixels(T, ntx, tile0, dt, dev)
+    px, py = _tile_pixels(T, ntx, tile0, dt, dev, tpv)
     counts = counts.to(torch.int64)
 
     acc = torch.zeros((T, P, col.shape[1]), dtype=dt, device=dev)
@@ -503,7 +522,7 @@ def composite_bwd_plain(ids: torch.Tensor, counts: torch.Tensor,
                         rec: torch.Tensor, col: torch.Tensor,
                         out: torch.Tensor, out2: torch.Tensor | None,
                         g: torch.Tensor, g2: torch.Tensor | None, ntx: int,
-                        sub: bool = False, tile0: int = 0):
+                        sub: bool = False, tile0: int = 0, tpv: int | None = None):
     """Plain PyTorch version of the backward kernel, with the Pallas
     semantics (``_bwd_kernel`` / ``_bwd_kernel_sub``).
 
@@ -528,7 +547,7 @@ def composite_bwd_plain(ids: torch.Tensor, counts: torch.Tensor,
     ch = _pick_chunk(K)
     dev = rec.device
     dt = rec.dtype
-    px, py = _tile_pixels(T, ntx, tile0, dt, dev)
+    px, py = _tile_pixels(T, ntx, tile0, dt, dev, tpv)
     counts = counts.to(torch.int64)
 
     grad_rec = torch.zeros((N, R), dtype=dt, device=dev)
@@ -606,33 +625,36 @@ def composite_bwd_plain(ids: torch.Tensor, counts: torch.Tensor,
 
 
 def composite_fwd(ids: torch.Tensor, counts: torch.Tensor, rec: torch.Tensor,
-                  col: torch.Tensor, ntx: int, sub: bool = False, tile0: int = 0):
+                  col: torch.Tensor, ntx: int, sub: bool = False, tile0: int = 0,
+                  tpv: int | None = None):
     """The forward kernel's wrapper: launches it for CUDA tensors (its
     backward launches the backward kernel), and takes the plain route only
     for tensors on the CPU. ``ids`` and ``counts`` hold the image tiles
-    [tile0, tile0 + T). Returns (out, out2|None)."""
+    [tile0, tile0 + T), or the tiles of views of ``tpv`` tiles each in turn
+    (:func:`composite_tiles_plain`). Returns (out, out2|None)."""
     fn = _CompositePlain if rec.device.type == "cpu" else _CompositeCuda
-    res = fn.apply(ids, counts, rec, col, ntx, sub, tile0)
+    res = fn.apply(ids, counts, rec, col, ntx, sub, tile0, tpv)
     return res if sub else (res, None)
 
 
 def composite_plain(ids: torch.Tensor, counts: torch.Tensor, rec: torch.Tensor,
-                    col: torch.Tensor, ntx: int, sub: bool = False, tile0: int = 0):
+                    col: torch.Tensor, ntx: int, sub: bool = False, tile0: int = 0,
+                    tpv: int | None = None):
     """The plain route on any device (``backend="plain"``), differentiable
     through :func:`composite_bwd_plain`. Returns (out, out2|None)."""
-    res = _CompositePlain.apply(ids, counts, rec, col, ntx, sub, tile0)
+    res = _CompositePlain.apply(ids, counts, rec, col, ntx, sub, tile0, tpv)
     return res if sub else (res, None)
 
 
 def composite_bwd(ids, counts, rec, col, out, out2, g, g2, ntx: int,
-                  sub: bool = False, tile0: int = 0):
+                  sub: bool = False, tile0: int = 0, tpv: int | None = None):
     """The backward kernel's wrapper: launches it for CUDA tensors, and
     takes :func:`composite_bwd_plain` only for tensors on the CPU. Returns
     (grad_rec [N, R], grad_col [N, CE])."""
     if rec.device.type == "cpu":
         return composite_bwd_plain(ids, counts, rec, col, out, out2, g, g2,
-                                   ntx, sub, tile0)
-    return _launch_bwd(ids, counts, rec, col, out, out2, g, g2, ntx, sub, tile0)
+                                   ntx, sub, tile0, tpv)
+    return _launch_bwd(ids, counts, rec, col, out, out2, g, g2, ntx, sub, tile0, tpv)
 
 
 # ---------------------------------------------------------------------------
@@ -640,23 +662,26 @@ def composite_bwd(ids, counts, rec, col, out, out2, g, g2, ntx: int,
 
 def pack_records(splats: ProjectedSplats, opacities: torch.Tensor,
                  sub_opacities: torch.Tensor | None = None) -> torch.Tensor:
-    """[N, R] per-Gaussian records; column 6 carries the fused subset
-    pass's opacities when given (``pallas_raster.py:415-421``)."""
+    """[N, R] per-Gaussian records, or [V, N, R] for splats with a leading
+    view axis; column 6 carries the fused subset pass's opacities when
+    given (``pallas_raster.py:415-421``)."""
     zeros = torch.zeros_like(opacities)
     return torch.stack([
-        splats.means2d[:, 0], splats.means2d[:, 1],
-        splats.conics[:, 0], splats.conics[:, 1], splats.conics[:, 2],
+        splats.means2d[..., 0], splats.means2d[..., 1],
+        splats.conics[..., 0], splats.conics[..., 1], splats.conics[..., 2],
         opacities,
         zeros if sub_opacities is None else sub_opacities,
         zeros,
-    ], dim=1).to(torch.float32).contiguous()
+    ], dim=-1).to(torch.float32).contiguous()
 
 
-def _untile(x: torch.Tensor, ntx: int, nty: int, width: int, height: int):
-    """[T, P, C] tiles → [H, W, C] image."""
+def _untile(x: torch.Tensor, ntx: int, nty: int, width: int, height: int,
+            views: tuple[int, ...] = ()):
+    """[T, P, C] tiles → [H, W, C] image; [V·T, P, C] → [V, H, W, C] with
+    ``views`` (V,)."""
     C = x.shape[-1]
-    x = x.reshape(nty, ntx, TILE, TILE, C).permute(0, 2, 1, 3, 4)
-    return x.reshape(nty * TILE, ntx * TILE, C)[:height, :width]
+    x = x.reshape(views + (nty, ntx, TILE, TILE, C)).transpose(-4, -3)
+    return x.reshape(views + (nty * TILE, ntx * TILE, C))[..., :height, :width, :]
 
 
 def composite_tiles(bins: TileBins, splats: ProjectedSplats,
@@ -686,6 +711,13 @@ def composite_tiles(bins: TileBins, splats: ProjectedSplats,
     ``min(α, 1)``, blend the background as ``bg·(1−α)``, divide depth by
     ``max(α, 1e-10)``.
 
+    Several views of one size composite in one launch per column group:
+    ``splats``, ``colors``, ``opacities`` (and ``sub_opacities``) then carry
+    a leading view axis [V, N, ...], and ``bins`` holds the views' tiles in
+    turn, each view's ids pointing at its rows of the flattened [V·N]
+    records (``ops/tiles.py::bin_views``); the outputs carry the view axis
+    too. Not on gauss-sharded rows.
+
     Returns image [H, W, C], alpha [H, W], expected depth [H, W]
     (+ subset alpha [H, W] with ``sub_opacities``).
     """
@@ -698,16 +730,20 @@ def composite_tiles(bins: TileBins, splats: ProjectedSplats,
     if backend == "cuda" and colors.device.type != "cuda":
         raise ValueError(f"backend='cuda' needs CUDA tensors, got {colors.device}")
     ntx, nty = int(bins.n_tiles_x), int(bins.n_tiles_y)
-    N, C = colors.shape
+    views = tuple(colors.shape[:-2])
+    N, C = colors.shape[-2:]
     has_sub = sub_opacities is not None
 
     ext = [colors.to(torch.float32)]
     if want_depth:
-        ext.append(splats.depths[:, None].to(torch.float32))
+        ext.append(splats.depths[..., None].to(torch.float32))
     if want_alpha:
-        ext.append(torch.ones((N, 1), dtype=torch.float32, device=colors.device))
-    col = torch.cat(ext, dim=1).contiguous()
+        ext.append(torch.ones(views + (N, 1), dtype=torch.float32, device=colors.device))
+    col = torch.cat(ext, dim=-1)
     rec = pack_records(splats, opacities, sub_opacities)
+    if views:
+        col, rec = col.reshape(-1, col.shape[-1]), rec.reshape(-1, R)
+    col = col.contiguous()
     ids = bins.gauss_ids.to(torch.int32).contiguous()
     counts = bins.counts.to(torch.int32).contiguous()
 
@@ -720,7 +756,7 @@ def composite_tiles(bins: TileBins, splats: ProjectedSplats,
     # (parallel/mesh.py::gather_gauss_rows).
     shard = Mx.tile_shard_info(ntx * nty) if Mx.gauss_shard_info() else None
     if shard is None:
-        out, out2 = fn(ids, counts, rec, col, ntx, sub=has_sub)
+        out, out2 = fn(ids, counts, rec, col, ntx, sub=has_sub, tpv=ntx * nty)
     else:
         mesh, axis, S = shard
         tile0 = mesh.get_local_rank(axis) * (ntx * nty // S)
@@ -730,9 +766,9 @@ def composite_tiles(bins: TileBins, splats: ProjectedSplats,
         out = Mx.gather_tile_axis(out, 0)
         out2 = Mx.gather_tile_axis(out2, 0) if has_sub else None
 
-    full = _untile(out, ntx, nty, width, height)
+    full = _untile(out, ntx, nty, width, height, views)
     image = full[..., :C]
-    zeros_hw = torch.zeros(image.shape[:2], dtype=torch.float32,
+    zeros_hw = torch.zeros(image.shape[:-1], dtype=torch.float32,
                            device=image.device)
     if want_alpha:
         alpha = torch.clamp(full[..., C + int(want_depth)], max=1.0)
@@ -746,6 +782,6 @@ def composite_tiles(bins: TileBins, splats: ProjectedSplats,
         exp_depth = zeros_hw
     if has_sub:
         sub_alpha = torch.clamp(
-            _untile(out2[..., None], ntx, nty, width, height)[..., 0], max=1.0)
+            _untile(out2[..., None], ntx, nty, width, height, views)[..., 0], max=1.0)
         return image, alpha, exp_depth, sub_alpha
     return image, alpha, exp_depth

@@ -55,16 +55,27 @@ def project(means: torch.Tensor, quats: torch.Tensor, scales: torch.Tensor,
     Returns:
       ProjectedSplats; culled Gaussians have radius 0.
 
+    Several cameras of one intrinsics project together: ``viewmat``
+    [V, 4, 4] and ``means``, ``quats``, ``scales`` [V, N, ...] (each view's
+    rows), giving records [V, N, ...] equal to V calls' to the bit: the ops
+    are the one-camera ops over a leading axis, but for the products with a
+    camera's rotation, taken per view as one call takes them. A batched
+    product rounds by another kernel, and its backward, a [3, N] @ [N, 3]
+    reduction a view, runs on one block a view.
+
     On gauss-sharded rows (``parallel/mesh.py::gauss_sharded``) ``means``,
     ``quats`` and ``scales`` are this rank's rows; the camera's gradient
     from them is then summed over the ``gauss`` ranks.
     """
     viewmat = Mx.replicated_into_rows(viewmat)
     dt = means.dtype
-    Rcw = viewmat[:3, :3]
-    tcw = viewmat[:3, 3]
-    p_cam = means @ Rcw.T + tcw  # [N, 3]
-    x, y, z = p_cam[:, 0], p_cam[:, 1], p_cam[:, 2]
+    Rcw = viewmat[..., :3, :3]
+    tcw = viewmat[..., :3, 3]
+    if viewmat.ndim == 2:
+        p_cam = means @ Rcw.T + tcw  # [N, 3]
+    else:
+        p_cam = torch.stack([m @ R.T for m, R in zip(means, Rcw)]) + tcw[:, None]
+    x, y, z = p_cam[..., 0], p_cam[..., 1], p_cam[..., 2]
     fx, fy = K[0, 0], K[1, 1]
     cx, cy = K[0, 2], K[1, 2]
 
@@ -79,7 +90,10 @@ def project(means: torch.Tensor, quats: torch.Tensor, scales: torch.Tensor,
 
     cov3d = quat_scale_to_cov3d(quats, scales)  # [N, 3, 3]
     W = Rcw  # world→cam rotation
-    covc = W @ cov3d @ W.T  # camera-frame covariance
+    if viewmat.ndim == 2:
+        covc = W @ cov3d @ W.T  # camera-frame covariance
+    else:
+        covc = torch.stack([R @ c @ R.T for R, c in zip(W, cov3d)])
 
     rz = 1.0 / zs
     rz2 = rz * rz
@@ -88,8 +102,8 @@ def project(means: torch.Tensor, quats: torch.Tensor, scales: torch.Tensor,
     j02 = -fx * tx * rz2
     j11 = fy * rz
     j12 = -fy * ty * rz2
-    c00, c01, c02 = covc[:, 0, 0], covc[:, 0, 1], covc[:, 0, 2]
-    c11, c12, c22 = covc[:, 1, 1], covc[:, 1, 2], covc[:, 2, 2]
+    c00, c01, c02 = covc[..., 0, 0], covc[..., 0, 1], covc[..., 0, 2]
+    c11, c12, c22 = covc[..., 1, 1], covc[..., 1, 2], covc[..., 2, 2]
     # cov2d = J Σc J^T, expanded by hand
     a = j00 * (j00 * c00 + j02 * c02) + j02 * (j00 * c02 + j02 * c22) + eps2d
     b = j00 * (j11 * c01 + j12 * c02) + j02 * (j11 * c12 + j12 * c22)
@@ -111,8 +125,8 @@ def project(means: torch.Tensor, quats: torch.Tensor, scales: torch.Tensor,
     lam = mid + torch.sqrt(torch.clamp(mid * mid - det, min=0.1))
     radius = torch.ceil(sigma_cut * torch.sqrt(lam))
 
-    inside = ((mean2d[:, 0] + radius > 0) & (mean2d[:, 0] - radius < width)
-              & (mean2d[:, 1] + radius > 0) & (mean2d[:, 1] - radius < height))
+    inside = ((mean2d[..., 0] + radius > 0) & (mean2d[..., 0] - radius < width)
+              & (mean2d[..., 1] + radius > 0) & (mean2d[..., 1] - radius < height))
     valid = (z > near) & inside & (det > 1e-12)
     radius = torch.where(valid, radius, torch.zeros_like(radius)).to(torch.int32)
 

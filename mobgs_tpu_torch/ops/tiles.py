@@ -69,6 +69,25 @@ def bin_gaussians(splats: ProjectedSplats, width: int, height: int,
                     n_tiles_x=ntx, n_tiles_y=nty, max_count=max_count)
 
 
+def bin_views(splats: ProjectedSplats, width: int, height: int,
+              tiles_per_gauss: int = 36, max_per_tile: int = 1024) -> TileBins:
+    """Bin V views of one size, each on its own as :func:`bin_gaussians`
+    bins it (its own sort and cut, its own counters), for one composite over
+    all of them: ``splats`` carry a leading view axis [V, N, ...]; the result
+    holds the views' tiles in turn ([V·T, K] ids, [V·T] counts), view v's ids
+    offset by v·N into the flattened records, and the peak occupancy over
+    the views."""
+    V, N = splats.means2d.shape[:2]
+    per = [bin_gaussians(ProjectedSplats(*(x[v] for x in splats)), width, height,
+                         tiles_per_gauss, max_per_tile) for v in range(V)]
+    ids = torch.stack([b.gauss_ids for b in per])
+    offset = torch.arange(V, dtype=ids.dtype, device=ids.device) * N
+    return TileBins(gauss_ids=(ids + offset[:, None, None]).reshape(-1, ids.shape[-1]),
+                    counts=torch.cat([b.counts for b in per]),
+                    n_tiles_x=per[0].n_tiles_x, n_tiles_y=per[0].n_tiles_y,
+                    max_count=torch.stack([b.max_count for b in per]).amax())
+
+
 def _count_kept(counts_raw, counts, max_per_tile: int):
     """The binning's counters of valid entries (pre-clamp), of entries kept
     under ``max_per_tile`` and of tiles that cut some."""

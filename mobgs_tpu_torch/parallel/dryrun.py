@@ -188,9 +188,9 @@ def _rank_main(rank: int, n: int, port: int, device: str, out_dir: str | None):
         real = cuda_raster.composite_fwd, cuda_raster.composite_plain
 
         def recording(fn):
-            def wrapped(ids, counts, rec, col, ntx, sub=False, tile0=0):
+            def wrapped(ids, counts, rec, col, ntx, sub=False, tile0=0, tpv=None):
                 ranges.append((tile0, ids.shape[0]))
-                return fn(ids, counts, rec, col, ntx, sub, tile0)
+                return fn(ids, counts, rec, col, ntx, sub, tile0, tpv)
             return wrapped
 
         cuda_raster.composite_fwd, cuda_raster.composite_plain = map(recording, real)

@@ -25,9 +25,11 @@ reaches it through the composite.
 Then the gradients of every Gaussian field, the Sandwich weights, the BLCE
 parameters (global-norm clipped to 1) and the offsets; densify statistics
 from the offsets' gradient scaled by (W/2, H/2); and Adam on each group.
-The views and exposures are Python loops; the compositing runs through the
-hand-written kernels for CUDA tensors (per step at B=2, E=9: 16 + 2
-forward and 16 + 2 backward launches flow off, 16 + 18 and 16 + 18 flow
+The views and exposures are Python loops, but for the latent renders: a
+view's E-1 of them are one batched pass (``models/render.py::render_latents``;
+one ``render_view`` each on gauss-sharded rows). The compositing runs
+through the hand-written kernels for CUDA tensors (per step at B=2, E=9:
+2 + 2 forward and 2 + 2 backward launches flow off, 2 + 18 and 2 + 18 flow
 on). The step updates the state in place (parameters and Adam moments) and
 returns it with new statistics and step count.
 """
@@ -175,17 +177,28 @@ def make_forward(opt_cfg, width: int, height: int, max_time: float,
                 else:
                     lat_w2c = w2c.expand(E, 4, 4)
                     expo = torch.zeros(E, dtype=torch.float32, device=dev)
-                for e in others:
-                    # latent render, image only (train.py:502-541)
-                    lat = R.render_view(
-                        stat, dyn, sandwich, Camera(w2c=lat_w2c[e], K=K, time=time),
-                        width, height, bg3, max_time,
-                        expo[e] if with_exposure_delta else None,
-                        want_depth=False, want_alpha=False, config=raster_cfg)
-                    lat_imgs.append(lat.image)
-                    tile_maxes.append(torch.as_tensor(lat.tile_max))
-                    if not compute_flow:
-                        continue
+                # the latent renders, image only (train.py:502-541): the E-1
+                # cameras in one batched pass; on gauss-sharded rows one
+                # render_view each
+                if Mx.gauss_shard_info() is None:
+                    lat = R.render_latents(
+                        stat, dyn, sandwich, torch.cat([lat_w2c[:half], lat_w2c[half + 1:]]),
+                        K, time, width, height, max_time,
+                        torch.cat([expo[:half], expo[half + 1:]]) if with_exposure_delta
+                        else None, config=raster_cfg)
+                    lat_imgs = lat.images
+                    tile_maxes.append(lat.tile_max)
+                else:
+                    for e in others:
+                        lat = R.render_view(
+                            stat, dyn, sandwich, Camera(w2c=lat_w2c[e], K=K, time=time),
+                            width, height, bg3, max_time,
+                            expo[e] if with_exposure_delta else None,
+                            want_depth=False, want_alpha=False, config=raster_cfg)
+                        lat_imgs.append(lat.image)
+                        tile_maxes.append(torch.as_tensor(lat.tile_max))
+                    lat_imgs = torch.stack(lat_imgs)
+                for e in others if compute_flow else ():
                     # exposure-flow pass at the view's own camera and the
                     # exposure-time geometry (train.py:564-584): image, exp→mid
                     # flow columns and the dynamic alpha
@@ -237,8 +250,7 @@ def make_forward(opt_cfg, width: int, height: int, max_time: float,
                                 config=raster_cfg)
             tile_maxes.append(torch.as_tensor(mid.tile_max))
             if with_latents:
-                preds.append((torch.stack(lat_imgs).sum(0) + mid.image) / E
-                             + 1e-10)
+                preds.append((lat_imgs.sum(0) + mid.image) / E + 1e-10)
             else:
                 preds.append(mid.image)
             depths.append(mid.depth)

@@ -21,6 +21,12 @@ them on for the process:
 "counters": {name: int}}``; ``reset()`` clears both. The state is the
 process's, as a profiler's is: one training loop at a time.
 
+The counters the program keeps: ``bin.candidates``, ``bin.valid``,
+``bin.kept`` and ``bin.tiles_cut``, once a binning (``ops/tiles.py``);
+``render.latent_calls`` and ``render.latent_views``, the train step's
+batched latent renders and the views they composite
+(``models/render.py::render_latents``: 2 and 16 a step at B=2, E=9).
+
 ``save_debug_grid`` and ``setup_seed`` are the ports of
 ``main_utils.py:49-92`` and ``train.py:941-947``.
 """

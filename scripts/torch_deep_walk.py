@@ -52,10 +52,10 @@ def mixed_composites():
     def make(fwd, bwd):
         class Mixed(torch.autograd.Function):
             @staticmethod
-            def forward(ctx, ids, counts, rec, col, ntx, sub, tile0=0):
-                out, out2 = fwd(ids, counts, rec, col, ntx, sub, tile0)
+            def forward(ctx, ids, counts, rec, col, ntx, sub, tile0=0, tpv=None):
+                out, out2 = fwd(ids, counts, rec, col, ntx, sub, tile0, tpv)
                 ctx.save_for_backward(ids, counts, rec, col, out, out2)
-                ctx.ntx, ctx.sub, ctx.tile0 = ntx, sub, tile0
+                ctx.ntx, ctx.sub, ctx.tile0, ctx.tpv = ntx, sub, tile0, tpv
                 return (out, out2) if sub else out
 
             @staticmethod
@@ -63,16 +63,16 @@ def mixed_composites():
                 ids, counts, rec, col, out, out2 = ctx.saved_tensors
                 gr, gc = bwd(ids, counts, rec, col, out, out2, g.contiguous(),
                              None if g2 is None else g2.contiguous(), ctx.ntx, ctx.sub,
-                             ctx.tile0)
-                return None, None, gr, gc, None, None, None
+                             ctx.tile0, ctx.tpv)
+                return None, None, gr, gc, None, None, None, None
 
-        def composite(ids, counts, rec, col, ntx, sub=False, tile0=0):
-            res = Mixed.apply(ids, counts, rec, col, ntx, sub, tile0)
+        def composite(ids, counts, rec, col, ntx, sub=False, tile0=0, tpv=None):
+            res = Mixed.apply(ids, counts, rec, col, ntx, sub, tile0, tpv)
             return res if sub else (res, None)
         return composite
 
-    def plain_fwd(ids, counts, rec, col, ntx, sub, tile0):
-        return cr.composite_tiles_plain(ids, counts, rec, col, ntx, sub, tile0=tile0)
+    def plain_fwd(ids, counts, rec, col, ntx, sub, tile0, tpv):
+        return cr.composite_tiles_plain(ids, counts, rec, col, ntx, sub, tile0=tile0, tpv=tpv)
 
     return {"kernel forward, plain backward": make(cr._launch, cr.composite_bwd_plain),
             "plain forward, kernel backward": make(plain_fwd, cr._launch_bwd)}

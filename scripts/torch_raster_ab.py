@@ -8,8 +8,8 @@ tiles_per_gauss=9, K=256, so 576 tiles and chunk 128).
                                        [--variants] [--ce29] [--k K] [--out FILE]
 
 Every source must export the C entry point ``raster_fwd(...)`` or
-``raster_bwd(...)``, either the tree's (with ``tile0``) or the one before
-it (bound as its source declares it, :func:`bind`); an earlier design is
+``raster_bwd(...)``, either the tree's (with ``tile0`` and ``tpv``) or one
+before it (bound as its source declares it, :func:`bind`); an earlier design is
 extracted with ``git show
 <commit>:<path>`` into a directory that ``.gitignore`` lists (``build/``).
 Each is compiled with the port's nvcc flags and ``mobgs_tpu_torch/csrc`` on
@@ -167,22 +167,29 @@ def build(name: str, sources: dict[str, Path], out_dir: Path):
     return built
 
 
-def takes_tile0(src: Path) -> bool:
-    """Whether a source's entry point has the ``tile0`` argument (the tree
-    since the tile-axis shard); an earlier design's has not."""
-    return "int tile0" in src.read_text()
+def range_args(src: Path) -> tuple[str, ...]:
+    """The tile-range arguments a source's entry point takes after ``ntx``:
+    ``tile0`` (since the tile-axis shard) and ``tpv`` (since the multi-view
+    launch, the tree's); an earlier design's takes neither."""
+    text = src.read_text()
+    return tuple(a for a in ("tile0", "tpv") if f"int {a}" in text)
 
 
-def bind(so: Path, name: str, tile0: bool):
+def bind(so: Path, name: str, ranges: tuple[str, ...]):
     """The entry point ``name`` of a library, bound as its source declares it."""
     lib = ctypes.CDLL(str(so))
     vp, ci = ctypes.c_void_p, ctypes.c_int
     fn = getattr(lib, name)
     n_ptr = 6 if name == "raster_fwd" else 10
-    fn.argtypes = [vp] * n_ptr + [ci] * (7 if tile0 else 6) + [vp]
+    fn.argtypes = [vp] * n_ptr + [ci] * (6 + len(ranges)) + [vp]
     fn.restype = ci
-    fn.tile0 = tile0
+    fn.ranges = ranges
     return fn
+
+
+def _shape(fn, T, K, CE, ntx):
+    """The shape arguments of a one-view launch over all its T tiles."""
+    return (T, K, CE, ntx) + tuple({"tile0": 0, "tpv": T}[a] for a in fn.ranges)
 
 
 def fwd_launcher(fn, args):
@@ -200,7 +207,7 @@ def fwd_launcher(fn, args):
         out = torch.empty((T, cuda_raster.P, CE), dtype=torch.float32, device=rec.device)
         out2 = (torch.empty((T, cuda_raster.P), dtype=torch.float32, device=rec.device)
                 if sub else None)
-        shape = (T, K, CE, ntx, 0) if fn.tile0 else (T, K, CE, ntx)
+        shape = _shape(fn, T, K, CE, ntx)
         err = fn(ids.data_ptr(), cnt.data_ptr(), rec.data_ptr(), col.data_ptr(),
                  out.data_ptr(), out2.data_ptr() if sub else None, *shape, ch,
                  int(sub), stream)
@@ -224,7 +231,7 @@ def bwd_launcher(fn, args):
     def run():
         gr = torch.zeros((N, cuda_raster.R), dtype=torch.float32, device=rec.device)
         gc = torch.zeros((N, CE), dtype=torch.float32, device=rec.device)
-        shape = (T, K, CE, ntx, 0) if fn.tile0 else (T, K, CE, ntx)
+        shape = _shape(fn, T, K, CE, ntx)
         err = fn(ids.data_ptr(), cnt.data_ptr(), rec.data_ptr(), col.data_ptr(),
                  out.data_ptr(), out2.data_ptr() if sub else None, g.data_ptr(),
                  g2.data_ptr() if sub else None, gr.data_ptr(), gc.data_ptr(),
@@ -376,7 +383,7 @@ def main():
         for line in log.splitlines():
             if any(k in line for k in ("Compiling entry", "registers", "spill")):
                 print(f"  ptxas {label}:", line.split("info    :")[-1].strip())
-    fns = {label: bind(so, name, takes_tile0(sources[label]))
+    fns = {label: bind(so, name, range_args(sources[label]))
            for label, (so, _) in built.items()}
     cases = protocol_cases(a.kernel, dev, a.ce29, a.k)
     others = [lb for lb in fns if lb != "tree"]

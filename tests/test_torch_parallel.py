@@ -252,10 +252,10 @@ def _ranged_plain(S):
     the collectives."""
     real = cuda_raster.composite_plain
 
-    def plain(ids, counts, rec, col, ntx, sub=False, tile0=0):
+    def plain(ids, counts, rec, col, ntx, sub=False, tile0=0, tpv=None):
         per = ids.shape[0] // S
         outs = [real(ids[r * per:(r + 1) * per], counts[r * per:(r + 1) * per], rec, col,
-                     ntx, sub, tile0 + r * per) for r in range(S)]
+                     ntx, sub, tile0 + r * per, tpv) for r in range(S)]
         return (torch.cat([o[0] for o in outs]),
                 torch.cat([o[1] for o in outs]) if sub else None)
     return plain

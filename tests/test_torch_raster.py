@@ -292,15 +292,15 @@ def test_column_groups_compose_the_one_launch(CE, sub, monkeypatch):
     results: the columns concatenate, the sub chain's alpha map and its
     gradient count once, the record gradients add up. The launches are
     counted per group under their own widths."""
-    def group(ids, counts, rec, col, ntx, sub_, tile0):
+    def group(ids, counts, rec, col, ntx, sub_, tile0, tpv):
         cuda_raster._count("raster_fwd_sub" if sub_ else "raster_fwd", col.shape[1])
         return cuda_raster.composite_tiles_plain(ids, counts, rec, col, ntx, sub_,
-                                                 tile0=tile0)
+                                                 tile0=tile0, tpv=tpv)
 
-    def bwd_group(ids, counts, rec, col, out, out2, g, g2, ntx, sub_, tile0):
+    def bwd_group(ids, counts, rec, col, out, out2, g, g2, ntx, sub_, tile0, tpv):
         cuda_raster._count("raster_bwd_sub" if sub_ else "raster_bwd", col.shape[1])
         return cuda_raster.composite_bwd_plain(ids, counts, rec, col, out, out2, g, g2,
-                                               ntx, sub_, tile0)
+                                               ntx, sub_, tile0, tpv)
 
     monkeypatch.setattr(cuda_raster, "_launch_group", group)
     monkeypatch.setattr(cuda_raster, "_launch_bwd_group", bwd_group)

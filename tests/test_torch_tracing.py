@@ -100,7 +100,8 @@ def test_loop_spans_off_on_and_bit_equal(scene):
 
     spans, n_it = rep["spans"], LAST - FIRST + 1
     assert set(spans) == STAGES
-    want_n = {"iteration/step/forward/render": BATCH * E * n_it,
+    # per batch view the batched latent renders and the mid render
+    want_n = {"iteration/step/forward/render": BATCH * 2 * n_it,
               "iteration/expo_update": 1, "iteration/expo_update/render": 2 * BATCH}
     for path, s in spans.items():
         assert s["n"] == want_n.get(path, n_it), path
@@ -110,8 +111,11 @@ def test_loop_spans_off_on_and_bit_equal(scene):
         kids = [c for c in spans if c.rpartition("/")[0] == path]
         assert sum(spans[c]["total_s"] for c in kids) <= s["total_s"] - s["self_s"] + 1e-6
     c = rep["counters"]
-    assert set(c) == {"bin.candidates", "bin.valid", "bin.kept", "bin.tiles_cut"}
+    assert set(c) == {"bin.candidates", "bin.valid", "bin.kept", "bin.tiles_cut",
+                      "render.latent_calls", "render.latent_views"}
     assert 0 < c["bin.kept"] <= c["bin.valid"] <= c["bin.candidates"]
+    assert (c["render.latent_calls"], c["render.latent_views"]) == (
+        BATCH * n_it, BATCH * (E - 1) * n_it)
 
 
 def test_nested_render_calls_take_longer_paths(scene):
