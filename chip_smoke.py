@@ -46,8 +46,8 @@ Sandwich and BLCE weights:
    and batch;
 9. train: 3 warm-up and 20 timed flow-off steps through ``make_train_step``
    with ``BatchSampler(24, 2, seed=0)``; report it/s, loss and PSNR per
-   step, read the launch counts of the timed steps (16 + 2 forward and
-   16 + 2 backward launches per step), check the parameters moved, and
+   step, read the launch counts of the timed steps (2 + 2 forward and
+   2 + 2 backward launches per step), check the parameters moved, and
    trace one step;
 10. the same check as 8 for a flow-on step (``lambda_flow_loss=1e-2``, the
     default configuration), whose flow term must be finite and positive,
@@ -55,10 +55,10 @@ Sandwich and BLCE weights:
     column groups), then one E=11 step through the kernels with its
     launches by instance;
 11. train 3 warm-up and 10 timed flow-on steps from a fresh state: it/s,
-    loss, flow term and PSNR per step; exactly 16 ``raster_fwd`` / 18
-    ``raster_fwd_sub`` / 16 ``raster_bwd`` / 18 ``raster_bwd_sub``
-    launches per step (the CE=11 + sub exposure-flow passes and the CE=29 +
-    sub mid render by instance); parameters moved; one step traced; the
+    loss, flow term and PSNR per step; exactly 2 ``raster_fwd`` / 4
+    ``raster_fwd_sub`` / 2 ``raster_bwd`` / 4 ``raster_bwd_sub``
+    launches per step (the batched CE=11 + sub exposure-flow passes and the
+    CE=29 + sub mid render by instance); parameters moved; one step traced; the
     warp loss of one view traced alone;
 12. ``make_exposure_update`` on a batch with an endpoint view through the
     kernels and the plain route (new exposures within EXPO_RTOL, finite,
@@ -2507,8 +2507,7 @@ def main():
     torch.cuda.synchronize()
     e11_launches, e11_instances = dict(cuda_raster.launches), dict(cuda_raster.instance_launches)
     n_groups = len(cuda_raster.column_groups(2 * e_w + 11))
-    want = {"raster_fwd": B_VIEWS,
-            "raster_fwd_sub": B_VIEWS * (e_w - 1) + B_VIEWS * n_groups}
+    want = {"raster_fwd": B_VIEWS, "raster_fwd_sub": B_VIEWS + B_VIEWS * n_groups}
     want.update(raster_bwd=want["raster_fwd"], raster_bwd_sub=want["raster_fwd_sub"])
     print(f"one E={e_w} flow-on step through the kernels: loss {float(m_w.loss)!r}, "
           f"launches {json.dumps(e11_launches)}; by instance {json.dumps(e11_instances)}")
@@ -2518,17 +2517,18 @@ def main():
     times["flow_step_check_s"] = time.time() - t0
 
     phase("11 flow-on train")
-    # per view: the E-1 latent renders in one launch (plain chain); E-1
-    # exposure-flow passes and the mid render with 2E flow columns (sub chain)
-    per_step_f = {"raster_fwd": B_VIEWS, "raster_fwd_sub": B_VIEWS * E_WARP,
-                  "raster_bwd": B_VIEWS, "raster_bwd_sub": B_VIEWS * E_WARP}
+    # per view: the E-1 latent renders in one launch (plain chain); the E-1
+    # exposure-flow passes in one launch and the mid render with 2E flow
+    # columns (sub chain)
+    per_step_f = {"raster_fwd": B_VIEWS, "raster_fwd_sub": 2 * B_VIEWS,
+                  "raster_bwd": B_VIEWS, "raster_bwd_sub": 2 * B_VIEWS}
     flow_fn = S.make_train_step(opt_flow, W, H, data.max_time, E_WARP, cfg)
     ts_f, rates["train_it_s_flow_on"], flow_launches, flow_instances, hist = train_steps(
         flow_fn, ts_f, sampler_f, N_FLOW_WARM, N_FLOW_STEPS, "flow on", per_step_f)
     require(all(h[2] > 0 for h in hist), "a flow-on step has no flow term")
     mid_ce = 9 + 2 * E_WARP + 2
-    for key, n in ((f"raster_fwd_sub CE={mid_ce}", B_VIEWS), ("raster_fwd_sub CE=11", B_VIEWS * (E_WARP - 1)),
-                   (f"raster_bwd_sub CE={mid_ce}", B_VIEWS), ("raster_bwd_sub CE=11", B_VIEWS * (E_WARP - 1))):
+    for key, n in ((f"raster_fwd_sub CE={mid_ce}", B_VIEWS), ("raster_fwd_sub CE=11", B_VIEWS),
+                   (f"raster_bwd_sub CE={mid_ce}", B_VIEWS), ("raster_bwd_sub CE=11", B_VIEWS)):
         require(flow_instances.get(key, 0) == n * N_FLOW_STEPS,
                 f"{key}: {flow_instances.get(key, 0)} launches, expected {n} per step")
     _, busy = trace(lambda: flow_fn(ts_f, L.make_batch(data, sampler_f.next_ids(), dev)),

@@ -13,11 +13,14 @@ V exposure shifts, run as one batched pass (``render_latents``): the
 static half assembled once, the dynamic half at the V times in one
 broadcast evaluation, the V cameras projected together, each binned on
 its own, one composite launch over all their tiles and one decode; each
-view's features equal its own ``render_view`` call's to the bit.
+view's features equal its own ``render_view`` call's to the bit. Its
+exposure-flow passes, V time shifts at the view's own camera, run the same
+way (``render_flow_passes``), with their flow columns and dynamic alpha.
 
 The entries the train step and the exposure update call (``render_view``,
-``render_latents``, ``get_flow_static``, ``make_shared_view``,
-``project_dyn2d``, ``project_combined``, ``assemble_project``) run in the
+``render_latents``, ``render_flow_passes``, ``get_flow_static``,
+``make_shared_view``, ``project_dyn2d``, ``project_combined``,
+``assemble_project``) run in the
 span ``render`` (``utils/observability.py``); a nested call in its own, one
 level down.
 """
@@ -248,6 +251,25 @@ def render_view(stat: G.GaussianState, dyn: G.GaussianState,
                      tile_max=out.tile_max)
 
 
+def _assemble_views(stat: G.GaussianState, dyn: G.GaussianState, time,
+                    max_time: float, delta_exposure: torch.Tensor | None, V: int):
+    """:func:`assemble`'s fields over a leading axis of V views at one time,
+    view v shifted by ``delta_exposure[v]`` ([V], or None for none): the
+    static half assembled once, the dynamic half at the V times in one
+    broadcast evaluation; each view's rows those of its own call, to the bit.
+    Returns (means, quats, scales, opacity, colors), each [V, N, ...]."""
+    if delta_exposure is None:
+        dyn_rows = assemble_dyn(dyn, time, max_time)
+    else:
+        dyn_rows = assemble_dyn(dyn, time, max_time, delta_exposure.reshape(V, 1, 1))
+
+    def per_view(s, d):  # [V, N, ...]: the static rows, then the view's dynamic
+        d = d if d.ndim > s.ndim else d.expand((V,) + d.shape)
+        return torch.cat([s.expand((V,) + s.shape), d], dim=1)
+
+    return tuple(per_view(s, d) for s, d in zip(assemble_static(stat), dyn_rows))
+
+
 class LatentOut(NamedTuple):
     images: torch.Tensor    # [V, H, W, 3] decoded RGB, one a camera
     feat: torch.Tensor      # [V, H, W, 9] raw features (pre-decoder)
@@ -280,17 +302,8 @@ def render_latents(stat: G.GaussianState, dyn: G.GaussianState,
     if obs.COUNTING:
         obs.count("render.latent_calls", host_int=1)
         obs.count("render.latent_views", host_int=V)
-    if delta_exposure is None:
-        dyn_rows = assemble_dyn(dyn, time, max_time)
-    else:
-        dyn_rows = assemble_dyn(dyn, time, max_time, delta_exposure.reshape(V, 1, 1))
-
-    def per_view(s, d):  # [V, N, ...]: the static rows, then the view's dynamic
-        d = d if d.ndim > s.ndim else d.expand((V,) + d.shape)
-        return torch.cat([s.expand((V,) + s.shape), d], dim=1)
-
-    means, quats, scales, opac, colors = (
-        per_view(s, d) for s, d in zip(assemble_static(stat), dyn_rows))
+    means, quats, scales, opac, colors = _assemble_views(stat, dyn, time, max_time,
+                                                         delta_exposure, V)
     splats = projection.project(means, quats, scales, w2c, K, width, height,
                                 eps2d=config.eps2d, near=config.near,
                                 sigma_cut=config.sigma_cut)
@@ -303,6 +316,63 @@ def render_latents(stat: G.GaussianState, dyn: G.GaussianState,
     rays = cam_rays(Camera(w2c=w2c, K=K, time=time), width, height)
     return LatentOut(images=apply_sandwich(sandwich, feat, rays), feat=feat,
                      tile_max=bins.max_count)
+
+
+class FlowPassOut(NamedTuple):
+    images: torch.Tensor    # [V, H, W, 3] decoded RGB, one a pass
+    d_alphas: torch.Tensor  # [V, H, W] dynamic-subset alpha
+    flows: torch.Tensor     # [V, H, W, 2] composited exp→mid flow columns
+    means2d: torch.Tensor   # [V, N, 2] each pass's projected centres
+    tile_max: torch.Tensor  # pre-clamp peak tile occupancy over the passes
+
+
+@obs.spanned("render")
+def render_flow_passes(stat: G.GaussianState, dyn: G.GaussianState,
+                       sandwich: SandwichParams, cam: Camera, width: int, height: int,
+                       mid2d: torch.Tensor, max_time: float, shifts: torch.Tensor,
+                       config: RasterConfig = RasterConfig()) -> FlowPassOut:
+    """The train step's V exposure-flow passes of a view in one pass: all
+    at the view's camera ``cam``, pass v at the exposure-time shift
+    ``shifts[v]`` ([V]), composited with its exp→mid flow ``(mid2d −
+    means2d_v).detach()`` ([N, 2] colours, ``mid2d`` the mid-time
+    projection) as two extra columns and the dynamic-alpha chain, with no
+    background, depth or weight columns (CE = 9 + 2 with the sub chain).
+    Each pass's outputs are those of ``assemble_project(stat, dyn, cam, ...,
+    shifts[v])`` and ``render_view(..., get_dynamic=True, extra_colors=flow,
+    subset_alpha_only=True, want_depth=False, want_alpha=False,
+    precomputed=...)`` to the bit, from the same float operations: the
+    assembly as :func:`render_latents`' over a leading pass axis, one
+    projection over it at the one camera (``ops/projection.py``, the products
+    with its rotation per pass), each pass binned on its own
+    (``ops/tiles.py::bin_views``), one composite launch over all their tiles
+    (``ops/cuda_raster.py``), one decode with the camera's rays, which on the
+    card may round some values in their last place as :func:`render_latents`'
+    does.
+
+    Counters (while counting is on): ``render.flow_calls`` one a call,
+    ``render.flow_views`` its V."""
+    V = shifts.shape[0]
+    if obs.COUNTING:
+        obs.count("render.flow_calls", host_int=1)
+        obs.count("render.flow_views", host_int=V)
+    means, quats, scales, opac, colors = _assemble_views(stat, dyn, cam.time, max_time,
+                                                         shifts, V)
+    splats = projection.project(means, quats, scales, cam.w2c.expand(V, 4, 4), cam.K,
+                                width, height, eps2d=config.eps2d, near=config.near,
+                                sigma_cut=config.sigma_cut)
+    bins = tiles.bin_views(projection.ProjectedSplats(*(x.detach() for x in splats)),
+                           width, height, tiles_per_gauss=config.tiles_per_gauss,
+                           max_per_tile=config.max_per_tile)
+    flow2d = (mid2d - splats.means2d).detach()
+    dyn_mask = torch.cat([torch.zeros(stat.capacity, dtype=torch.float32, device=opac.device),
+                          torch.ones(dyn.capacity, dtype=torch.float32, device=opac.device)])
+    feat, _, _, d_alphas = cuda_raster.composite_tiles(
+        bins, splats, torch.cat([colors, flow2d], dim=-1), opac, width, height,
+        sub_opacities=opac * dyn_mask, want_depth=False, want_alpha=False,
+        backend=config.backend)
+    images = apply_sandwich(sandwich, feat[..., :9], cam_rays(cam, width, height))
+    return FlowPassOut(images=images, d_alphas=d_alphas, flows=feat[..., 9:],
+                       means2d=splats.means2d, tile_max=bins.max_count)
 
 
 @obs.spanned("render")

@@ -46,10 +46,11 @@ once. They serve CPU tensors (and ``backend="plain"``);
 tensors or raise; past 32 colour columns they launch them once per column
 group (:func:`column_groups`). One launch may composite several views of
 one size, their tiles stacked along the rows (``tpv`` tiles a view): the
-train step's latent renders of a view go as one launch of E-1 views. Gradients reach ``rec`` and ``col`` through one
-``torch.autograd.Function`` per route: the kernels' for CUDA tensors, the
-plain backward's for the plain route, never autograd through the plain
-forward's ops.
+train step's latent renders of a view go as one launch of E-1 views, and
+so do its exposure-flow passes (CE=11 + sub). Gradients reach ``rec`` and
+``col`` through one ``torch.autograd.Function`` per route: the kernels' for
+CUDA tensors, the plain backward's for the plain route, never autograd
+through the plain forward's ops.
 """
 
 from __future__ import annotations

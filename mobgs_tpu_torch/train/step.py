@@ -25,13 +25,15 @@ reaches it through the composite.
 Then the gradients of every Gaussian field, the Sandwich weights, the BLCE
 parameters (global-norm clipped to 1) and the offsets; densify statistics
 from the offsets' gradient scaled by (W/2, H/2); and Adam on each group.
-The views and exposures are Python loops, but for the latent renders: a
-view's E-1 of them are one batched pass (``models/render.py::render_latents``;
-one ``render_view`` each on gauss-sharded rows). The compositing runs
-through the hand-written kernels for CUDA tensors (per step at B=2, E=9:
-2 + 2 forward and 2 + 2 backward launches flow off, 2 + 18 and 2 + 18 flow
-on). The step updates the state in place (parameters and Adam moments) and
-returns it with new statistics and step count.
+The views are a Python loop; a view's E-1 latent renders are one batched
+pass (``models/render.py::render_latents``), and so are its E-1
+exposure-flow passes (``render_flow_passes``). On gauss-sharded rows each
+latent render and each flow pass is one ``render_view`` call; on the shared
+static pool each flow pass is. The compositing runs through the
+hand-written kernels for CUDA tensors (per step at B=2, E=9: 2 + 2 forward
+and 2 + 2 backward launches flow off, 2 + 2 + 2 and 2 + 2 + 2 flow on). The
+step updates the state in place (parameters and Adam moments) and returns
+it with new statistics and step count.
 """
 
 from __future__ import annotations
@@ -154,6 +156,12 @@ def make_forward(opt_cfg, width: int, height: int, max_time: float,
         dev = stat.xyz.device
         bg3 = torch.zeros(3, dtype=torch.float32, device=dev)
         preds, depths, d_alphas, radii, tile_maxes, flow_ls = [], [], [], [], [], []
+        # a view's exposure-flow passes in one batched pass, except on the
+        # shared static pool or on gauss-sharded rows
+        batched_flow = compute_flow and not shared_static and Mx.gauss_shard_info() is None
+        if batched_flow:
+            shifts = torch.tensor([ratios[e] for e in others], dtype=torch.float32,
+                                  device=dev)
         for b in range(batch.view_idx.shape[0]):
             w2c, K, time = batch.w2c[b], batch.K[b], batch.time[b]
             cam = Camera(w2c=w2c, K=K, time=time)
@@ -198,10 +206,19 @@ def make_forward(opt_cfg, width: int, height: int, max_time: float,
                         lat_imgs.append(lat.image)
                         tile_maxes.append(torch.as_tensor(lat.tile_max))
                     lat_imgs = torch.stack(lat_imgs)
-                for e in others if compute_flow else ():
-                    # exposure-flow pass at the view's own camera and the
-                    # exposure-time geometry (train.py:564-584): image, exp→mid
-                    # flow columns and the dynamic alpha
+                if batched_flow:
+                    # the exposure-flow passes at the view's own camera and the
+                    # exposure-time geometry (train.py:564-584), the E-1 shifts
+                    # in one batched pass: image, exp→mid flow columns and the
+                    # dynamic alpha
+                    fl = R.render_flow_passes(stat, dyn, sandwich, cam, width, height,
+                                              mid2d, max_time, shifts, raster_cfg)
+                    tile_maxes.append(fl.tile_max)
+                    f_imgs, f_alphas, f_e2m = list(fl.images), list(fl.d_alphas), list(fl.flows)
+                    flow2d_o = list((mid2d - fl.means2d).detach())
+                for e in others if compute_flow and not batched_flow else ():
+                    # one exposure-flow pass a shift: on the shared static pool,
+                    # or on gauss-sharded rows
                     if shared_static:
                         # only the dynamic rows differ from the shared panel
                         dyn2d_e = R.project_dyn2d(dyn, cam, width, height,

@@ -25,7 +25,10 @@ The counters the program keeps: ``bin.candidates``, ``bin.valid``,
 ``bin.kept`` and ``bin.tiles_cut``, once a binning (``ops/tiles.py``);
 ``render.latent_calls`` and ``render.latent_views``, the train step's
 batched latent renders and the views they composite
-(``models/render.py::render_latents``: 2 and 16 a step at B=2, E=9).
+(``models/render.py::render_latents``: 2 and 16 a step at B=2, E=9);
+``render.flow_calls`` and ``render.flow_views``, its batched exposure-flow
+passes and the passes they composite (``render_flow_passes``: 2 and 16 a
+step at B=2, E=9 with flow on).
 
 ``save_debug_grid`` and ``setup_seed`` are the ports of
 ``main_utils.py:49-92`` and ``train.py:941-947``.

@@ -546,6 +546,129 @@ def test_render_latents_on_card_equals_render_view_calls(cuda):
     assert int(bat.tile_max) == max(int(o.tile_max) for o in one)
 
 
+def _flow_pass_operands(dev, V=8):
+    """The records, colours (9 features and the exp→mid flow) and tile lists
+    of V exposure-flow passes of batch view 1 of the small state, at the
+    train step's shifts for E = V + 1, each pass binned alone and stacked for
+    one launch (``tiles.bin_views``). Returns (per-pass operands, stacked
+    operands, ntx)."""
+    ts, batch = _small_train_state(dev, num_warp=V + 1)
+    cam = Camera(w2c=batch.w2c[1], K=batch.K[1], time=batch.time[1])
+    half = V // 2
+    shifts = torch.tensor([(e - half) / half for e in range(V + 1) if e != half], device=dev)
+    with torch.no_grad():
+        mid2d = R.project_combined(ts.stat, ts.dyn, cam, W, H, 1.0)
+        means, quats, scales, opac, colors = R._assemble_views(ts.stat, ts.dyn, cam.time, 1.0,
+                                                               shifts, V)
+        splats = projection.project(means, quats, scales, cam.w2c.expand(V, 4, 4), cam.K, W, H)
+        bins = tiles.bin_views(splats, W, H, max_per_tile=256)
+        dyn_mask = torch.cat([torch.zeros(ts.stat.capacity, device=dev),
+                              torch.ones(ts.dyn.capacity, device=dev)])
+        rec = cuda_raster.pack_records(splats, opac, opac * dyn_mask)
+        col = torch.cat([colors, mid2d - splats.means2d], dim=-1)
+    n, T = rec.shape[1], bins.counts.shape[0] // V
+    ids, cnt = bins.gauss_ids.to(torch.int32), bins.counts.to(torch.int32)
+    per = [((ids[v * T:(v + 1) * T] - v * n).contiguous(), cnt[v * T:(v + 1) * T].contiguous(),
+            rec[v].contiguous(), col[v].contiguous()) for v in range(V)]
+    stacked = (ids.contiguous(), cnt.contiguous(), rec.reshape(-1, cuda_raster.R).contiguous(),
+               col.reshape(-1, 11).contiguous())
+    return per, stacked, bins.n_tiles_x
+
+
+@pytest.mark.gpu
+def test_flow_pass_launch_on_card(cuda):
+    """A view's 8 exposure-flow passes (CE = 9 + 2 with the sub chain) in one
+    launch over their tiles (``tpv``) against one launch a pass: the forward
+    and its alpha map to the bit, the backward within BWD_REL per column of
+    each pass's rows (the atomics add in another order); one launch each
+    way."""
+    per, (ids_s, cnt_s, rec_s, col_s), ntx = _flow_pass_operands(cuda)
+    V, T, n = len(per), per[0][0].shape[0], per[0][2].shape[0]
+    rng = np.random.default_rng(11)
+    with torch.no_grad():
+        one = [cuda_raster.composite_fwd(*p, ntx, True) for p in per]
+        before = dict(cuda_raster.launches)
+        many = cuda_raster.composite_fwd(ids_s, cnt_s, rec_s, col_s, ntx, True, tpv=T)
+        assert cuda_raster.launches["raster_fwd_sub"] == before["raster_fwd_sub"] + 1
+        g = torch.as_tensor(rng.normal(size=many[0].shape).astype(np.float32), device=cuda)
+        g2 = torch.as_tensor(rng.normal(size=many[1].shape).astype(np.float32), device=cuda)
+        before = dict(cuda_raster.launches)
+        gm = cuda_raster.composite_bwd(ids_s, cnt_s, rec_s, col_s, *many, g, g2, ntx, True,
+                                       tpv=T)
+        assert cuda_raster.launches["raster_bwd_sub"] == before["raster_bwd_sub"] + 1
+        go = [cuda_raster.composite_bwd(*p, *o, g[v * T:(v + 1) * T].contiguous(),
+                                        g2[v * T:(v + 1) * T].contiguous(), ntx, True)
+              for v, (p, o) in enumerate(zip(per, one))]
+    torch.cuda.synchronize()
+    assert float(many[1].max()) > 0.1 and float(col_s[:, 9:].abs().max()) > 0.1
+    assert torch.equal(many[0], torch.cat([o[0] for o in one]))
+    assert torch.equal(many[1], torch.cat([o[1] for o in one]))
+    for v, (gr, gc) in enumerate(go):
+        rows = slice(v * n, (v + 1) * n)
+        for j in range(7):
+            assert _rel_err(gm[0][rows, j], gr[:, j]) <= BWD_REL, (v, j)
+        assert _rel_err(gm[1][rows], gc) <= BWD_REL, v
+
+
+@pytest.mark.gpu
+def test_render_flow_passes_on_card_equals_render_view_calls(cuda):
+    """The batched exposure-flow passes through the kernels against one
+    ``assemble_project`` + ``render_view`` call a pass (E=5: four passes):
+    dynamic alphas, flow columns and projected centres to the bit, decoded
+    images within DECODE_ATOL (the decoder's batched product, as
+    ``render_latents``'), one composite launch against four, the peak
+    occupancy the calls' largest, and each leaf's gradient of a weighted sum
+    of the three maps within STEP_REL of its largest magnitude."""
+    E = 5
+    ts, batch = _small_train_state(cuda, num_warp=E)
+    cfg = RasterConfig(max_per_tile=256)
+    leaves = [*G.split_diff(ts.stat)[0], *G.split_diff(ts.dyn)[0],
+              *S.sandwich_leaves(ts.sandwich)]
+    for p in leaves:
+        p.requires_grad_(True)
+    cam = Camera(w2c=batch.w2c[1], K=batch.K[1], time=batch.time[1])
+    mid2d = R.project_combined(ts.stat, ts.dyn, cam, W, H, 1.0, None, cfg).detach()
+    ratios = [(e - 2) / 2 for e in range(E) if e != 2]
+    rng = np.random.default_rng(5)
+    wts = [torch.as_tensor(rng.uniform(size=(E - 1, H, W) + c).astype(np.float32), device=cuda)
+           for c in ((3,), (), (2,))]
+    before = dict(cuda_raster.launches)
+    bat = R.render_flow_passes(ts.stat, ts.dyn, ts.sandwich, cam, W, H, mid2d, 1.0,
+                               torch.tensor(ratios, device=cuda), cfg)
+    assert cuda_raster.launches["raster_fwd_sub"] == before["raster_fwd_sub"] + 1
+    one, means2d = [], []
+    for r in ratios:
+        geom, splats = R.assemble_project(ts.stat, ts.dyn, cam, W, H, 1.0, r, cfg)
+        one.append(R.render_view(ts.stat, ts.dyn, ts.sandwich, cam, W, H,
+                                 torch.zeros(3, device=cuda), 1.0, get_dynamic=True,
+                                 extra_colors=(mid2d - splats.means2d).detach(),
+                                 subset_alpha_only=True, want_depth=False, want_alpha=False,
+                                 precomputed=(geom, splats), config=cfg))
+        means2d.append(splats.means2d)
+    torch.cuda.synchronize()
+    for v, o in enumerate(one):
+        assert torch.equal(bat.d_alphas[v], o.d_alpha), v
+        assert torch.equal(bat.flows[v], o.flow), v
+        assert torch.equal(bat.means2d[v], means2d[v]), v
+        np.testing.assert_allclose(bat.images[v].detach().cpu().numpy(),
+                                   o.image.detach().cpu().numpy(), rtol=0, atol=DECODE_ATOL)
+    assert int(bat.tile_max) == max(int(o.tile_max) for o in one)
+    maps = (bat.images, bat.d_alphas, bat.flows)
+    g_bat = torch.autograd.grad(sum((x * w).sum() for x, w in zip(maps, wts)), leaves,
+                                allow_unused=True)
+    g_one = torch.autograd.grad(sum((x * w[v]).sum() for v, o in enumerate(one)
+                                    for x, w in zip((o.image, o.d_alpha, o.flow), wts)),
+                                leaves, allow_unused=True)
+    n_checked = 0
+    for a, b in zip(g_bat, g_one):
+        if b is None or not b.any():
+            assert a is None or not a.any()
+            continue
+        n_checked += 1
+        assert _rel_err(a, b) <= STEP_REL
+    assert n_checked >= 10
+
+
 @pytest.mark.gpu
 def test_train_step_kernels_match_plain_on_card(cuda):
     """One flow-off step's loss and gradients (B=2, E=3) through the
@@ -609,10 +732,10 @@ def _step_kernels_vs_plain(cuda, lambda_flow, num_warp=3):
     torch.cuda.synchronize()
     assert bool(torch.isfinite(m.loss)) and ts.step == 1
     # per view: the E-1 latent renders in one launch and the mid render with
-    # the sub chain (in column groups past CE=32), and with flow on E-1
-    # exposure-flow passes with it too
+    # the sub chain (in column groups past CE=32), and with flow on the E-1
+    # exposure-flow passes in one launch with it too
     mid_ce = 9 + 2 * E + 2 if lambda_flow > 0 else 11
-    n_sub = 2 * len(cuda_raster.column_groups(mid_ce)) + (2 * (E - 1) if lambda_flow > 0 else 0)
+    n_sub = 2 * len(cuda_raster.column_groups(mid_ce)) + (2 if lambda_flow > 0 else 0)
     assert {k: cuda_raster.launches[k] - before[k] for k in before} == {
         "raster_fwd": 2, "raster_fwd_sub": n_sub,
         "raster_bwd": 2, "raster_bwd_sub": n_sub}
@@ -1164,8 +1287,9 @@ def test_merge_dyn_bins_matches_bin_gaussians_on_card(cuda):
 def test_shared_static_flow_step_matches_unshared_on_card(cuda):
     """One flow-on step (B=2, E=3) through the kernels with
     ``shared_static=True`` and with the default: the loss within 1e-5, each
-    gradient leaf within STEP_REL of its largest magnitude, and the same
-    kernel launches."""
+    gradient leaf within STEP_REL of its largest magnitude; the shared route
+    launches one exposure-flow pass at a time, the default a view's E-1 = 2
+    in one launch."""
     ts, batch = _small_train_state(cuda)
     opt = OptimizationParams(iterations=100, lambda_flow_loss=1e-2)
     cfg = RasterConfig(max_per_tile=256)
@@ -1181,7 +1305,12 @@ def test_shared_static_flow_step_matches_unshared_on_card(cuda):
         torch.cuda.synchronize()
         launches[shared] = {k: cuda_raster.launches[k] - before[k] for k in before}
         res[shared] = (float(total.detach()), grads)
-    assert launches[True] == launches[False]
+    # per view: the latents' launch, the mid render's, and the flow passes'
+    # E-1 = 2 launches shared or one unshared; forward and backward alike
+    assert launches[True] == {"raster_fwd": 2, "raster_fwd_sub": 6,
+                              "raster_bwd": 2, "raster_bwd_sub": 6}
+    assert launches[False] == {"raster_fwd": 2, "raster_fwd_sub": 4,
+                               "raster_bwd": 2, "raster_bwd_sub": 4}
     np.testing.assert_allclose(res[True][0], res[False][0], rtol=1e-5)
     for a, b in zip(res[True][1], res[False][1]):
         if b is None or not b.any():
