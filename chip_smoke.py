@@ -58,8 +58,13 @@ Sandwich and BLCE weights:
     loss, flow term and PSNR per step; exactly 2 ``raster_fwd`` / 4
     ``raster_fwd_sub`` / 2 ``raster_bwd`` / 4 ``raster_bwd_sub``
     launches per step (the batched CE=11 + sub exposure-flow passes and the
-    CE=29 + sub mid render by instance); parameters moved; one step traced; the
-    warp loss of one view traced alone;
+    CE=29 + sub mid render by instance) and 2 ``warp_fwd`` / 2 ``warp_bwd``
+    (the flow-warp loss, a view's 2E warps a launch); parameters moved;
+    ``loss.warp_calls`` / ``loss.warp_images`` 2 / 36 over one step; one
+    step traced; the warp loss of one view alone (:func:`warp_phase`): the
+    kernel pair against the plain route (forward bit-equal, gradients within
+    FLOW_WARP_REL), each timed with CUDA events beside its byte bound, and
+    the whole loss traced through both routes;
 12. ``make_exposure_update`` on a batch with an endpoint view through the
     kernels and the plain route (new exposures within EXPO_RTOL, finite,
     written only at the batch's views), then timed over 10 calls, each 4
@@ -148,7 +153,8 @@ Sandwich and BLCE weights:
     half): one flow-on step shared and unshared (loss within LOSS_RTOL,
     leaves within STEP_REL), the merged bins and the forward images of the
     mid render and a flow pass bit-equal, and the device ms per step of both
-    with their launches (equal);
+    with their launches (equal but the CE=11 + sub flow passes: one launch a
+    pass shared, one a view unshared);
 20. the rest of the library on the card: the gsplat shim
     (``compat.rasterization``) on the protocol scene at t = 0.5, C = 3
     "RGB+ED" and C = 9 "RGB" (CE = 5 and 11), forward and backward through
@@ -310,6 +316,11 @@ LIB_GRAD_REL = 1e-4
 # between taps
 WARP_REL = 1e-4
 WARP_BUCKETS = {"direct_warp_rt1_rt2": 64, "occ_rt1_rt2": 128}
+# the flow-warp kernels against the plain route: gradients within this of the
+# largest magnitude (atomics and index_add_ sum in other orders); timed over
+# this many launches
+FLOW_WARP_REL = 1e-6
+N_WARP_TIMED = 50
 KNN_POINTS, KNN_K = 20_000, 20
 ONEDOWN_THR = 0.05
 # flow columns are displacements in pixels: their kernel-vs-plain difference
@@ -1370,13 +1381,99 @@ def registry_phase(dev, card, times, protocol, trace):
                 f"shared static {name}: loss {loss_rel}, leaves {leaf_rel}")
         require(bins_equal, f"shared static {name}: merged bins differ from bin_gaussians")
         require(images_equal, f"shared static {name}: forward images differ")
-        require(steps[True][2] == steps[False][2], f"shared static {name}: launches differ")
+        # the shared pool composites each exposure-flow pass alone, the unshared
+        # step a view's E-1 passes in one launch (render_flow_passes); the rest alike
+        n_flow = batch_views * SHARED_STEPS
+        flow_keys = ("raster_fwd_sub CE=11", "raster_bwd_sub CE=11")
+        want = dict(steps[False][2], **{k: (E_WARP - 1) * n_flow for k in flow_keys})
+        require(all(steps[False][2].get(k) == n_flow for k in flow_keys)
+                and steps[True][2] == want, f"shared static {name}: launches differ")
     return launches_total
 
 
 def rel_err(a, b):
     """Max abs difference over the reference's largest magnitude."""
     return float((a.float() - b.float()).abs().max()) / max(float(b.float().abs().max()), 1e-30)
+
+
+def device_kernels(fn):
+    """Device kernels (and memsets) one call of ``fn`` launches, and their
+    device time in ms, from the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    return len(evs), sum(ev.time_range.elapsed_us() for ev in evs) / 1e3
+
+
+def warp_phase(dev, times):
+    """The flow-warp loss of one view at protocol shape (2E warps of W x H
+    x 3): the kernel pair (``ops/cuda_warp.py``) against the plain route
+    (``train/losses.py::_WarpImages``) on coordinates a few pixels off the
+    grid, then each timed with CUDA events over N_WARP_TIMED calls (the
+    plain route's time is its host's dispatch: the stream waits on it),
+    the kernels beside their byte bound, and the whole loss's launches and
+    device time through both routes."""
+    from mobgs_tpu_torch.data.cameras import pixel_grid
+    from mobgs_tpu_torch.ops import cuda_warp
+    from mobgs_tpu_torch.train import losses
+    K = 2 * E_WARP
+    gen = torch.Generator(device=dev).manual_seed(3)
+    pix = pixel_grid(W, H, device=dev)
+    imgs = torch.rand((K, H, W, 3), generator=gen, device=dev)
+    coords = pix + 4 * torch.randn((K, H, W, 2), generator=gen, device=dev)
+    g = torch.randn((K, H, W, 3), generator=gen, device=dev)
+    routes = {"kernels": cuda_warp.WarpCuda.apply, "plain": losses._WarpImages.apply}
+
+    def fwd_bwd(route):
+        a, c = imgs.clone().requires_grad_(True), coords.clone().requires_grad_(True)
+        out = routes[route](a, c, W, H)
+        return (out.detach(), *torch.autograd.grad(out, (a, c), g))
+
+    res = {route: fwd_bwd(route) for route in routes}
+    torch.cuda.synchronize()
+    (ok, gik, gck), (op, gip, gcp) = res["kernels"], res["plain"]
+    gi_rel, gc_rel = rel_err(gik, gip), rel_err(gck, gcp)
+    print(f"warp kernels vs plain ({K} warps of {W}x{H}x3): forward bit-equal "
+          f"{torch.equal(ok, op)}, max abs diff {float((ok - op).abs().max()):.3g}; "
+          f"image gradient {gi_rel:.3g}, coordinate gradient {gc_rel:.3g} of the largest")
+    require(torch.equal(ok, op), "warp kernel forward differs from the plain route")
+    require(gi_rel <= FLOW_WARP_REL and gc_rel <= FLOW_WARP_REL,
+            f"warp kernel gradients {gi_rel:.3g} / {gc_rel:.3g} past {FLOW_WARP_REL}")
+
+    P = K * H * W
+    bytes_fwd, bytes_bwd = P * (8 + 12 + 12), P * (8 + 12 + 12 + 8 + 12)
+    ms = {"kernel fwd": cuda_ms(lambda: cuda_warp.warp_fwd(imgs, coords, W, H), N_WARP_TIMED),
+          "kernel bwd": cuda_ms(lambda: cuda_warp.warp_bwd(imgs, coords, g, W, H),
+                                N_WARP_TIMED),
+          "kernel fwd+bwd": cuda_ms(lambda: fwd_bwd("kernels"), N_WARP_TIMED),
+          "plain fwd": cuda_ms(lambda: losses._WarpImages.apply(imgs, coords, W, H),
+                               N_WARP_TIMED),
+          "plain fwd+bwd": cuda_ms(lambda: fwd_bwd("plain"), N_WARP_TIMED)}
+    bounds = {"kernel fwd": bound(0, bytes_fwd), "kernel bwd": bound(0, bytes_bwd)}
+    for name, t in ms.items():
+        extra = (f", bound {bounds[name]:.4f} ms ({100 * bounds[name] / t:.1f} %)"
+                 if name in bounds else "")
+        print(f"warp {name}: {t:.4f} ms{extra}")
+    times.update({f"warp_{k.replace(' ', '_').replace('+', '_')}_ms": v for k, v in ms.items()})
+
+    # the whole loss of one view (the masked L1 terms too), both routes
+    wl_in = [torch.rand(s, generator=gen, device=dev).requires_grad_(True)
+             for s in ((H, W, 3), (E_WARP, H, W, 3), (E_WARP, H, W), (H, W))]
+    wl_co = [c.detach().requires_grad_(True) for c in coords.split(E_WARP)]
+    for backend in ("cuda", "plain"):
+        def loss_fwd_bwd():
+            loss = losses.flow_warp_loss(*wl_in, *wl_co, W, H, backend=backend)
+            return torch.autograd.grad(loss, wl_in + wl_co)
+        loss_fwd_bwd()
+        n, dev_ms = device_kernels(loss_fwd_bwd)
+        wall = cuda_ms(loss_fwd_bwd, 10)
+        print(f"flow_warp_loss of one view, {backend}: {n} device launches, "
+              f"{dev_ms:.3f} ms device, {wall:.3f} ms on the stream")
+        times[f"warp_loss_view_{backend}_launches"] = n
+        times[f"warp_loss_view_{backend}_ms"] = wall
 
 
 def library_phase(dev, card, times, protocol):
@@ -2079,7 +2176,7 @@ def main():
     from mobgs_tpu_torch.models import gaussians as G
     from mobgs_tpu_torch.models import render as R
     from mobgs_tpu_torch.models.sandwich import init_sandwich
-    from mobgs_tpu_torch.ops import cuda_raster, projection, tiles
+    from mobgs_tpu_torch.ops import cuda_raster, cuda_warp, projection, tiles
     from mobgs_tpu_torch.viewer import ViewerServer, make_viewer_render
 
     t_start = time.time()
@@ -2302,10 +2399,9 @@ def main():
     # ---- the training slice ----
     from mobgs_tpu_torch.config import OptimizationParams
     from mobgs_tpu_torch.models import blce as B
-    from mobgs_tpu_torch.data.cameras import pixel_grid
     from mobgs_tpu_torch.train import loop as L
-    from mobgs_tpu_torch.train import losses
     from mobgs_tpu_torch.train import step as S
+    from mobgs_tpu_torch.utils import observability as obs
 
     phase("7 backward kernel vs plain")
     T_tiles = bins.gauss_ids.shape[0]
@@ -2397,6 +2493,7 @@ def main():
             ts, m = step_fn(ts, L.make_batch(data, sampler.next_ids(), dev))
         torch.cuda.synchronize()
         cuda_raster.reset_launches()
+        cuda_warp.reset_launches()
         step_s, hist = [], []
         for k in range(n_steps):
             b = L.make_batch(data, sampler.next_ids(), dev)
@@ -2406,7 +2503,7 @@ def main():
             torch.cuda.synchronize()
             step_s.append(time.time() - t0)
             hist.append((float(m.loss), float(m.psnr), float(m.flow), int(m.tile_max)))
-        counts = dict(cuda_raster.launches)
+        counts = {**cuda_raster.launches, **cuda_warp.launches}
         by_instance = dict(cuda_raster.instance_launches)
         rate = n_steps / sum(step_s)
         for k, (loss, ps, fl, tm) in enumerate(hist):
@@ -2478,7 +2575,8 @@ def main():
     # per view: the E-1 latent renders in one launch (plain chain) and the mid
     # render (sub chain)
     per_step = {"raster_fwd": B_VIEWS, "raster_fwd_sub": B_VIEWS,
-                "raster_bwd": B_VIEWS, "raster_bwd_sub": B_VIEWS}
+                "raster_bwd": B_VIEWS, "raster_bwd_sub": B_VIEWS,
+                "warp_fwd": 0, "warp_bwd": 0}
     step_fn = S.make_train_step(opt, W, H, data.max_time, E_WARP, cfg)
     ts, rates["train_it_s"], train_launches, _, _ = train_steps(
         step_fn, ts, sampler, N_WARM, N_STEPS, "flow off", per_step)
@@ -2519,13 +2617,27 @@ def main():
     phase("11 flow-on train")
     # per view: the E-1 latent renders in one launch (plain chain); the E-1
     # exposure-flow passes in one launch and the mid render with 2E flow
-    # columns (sub chain)
+    # columns (sub chain); the 2E warps of the flow-warp loss in one launch
     per_step_f = {"raster_fwd": B_VIEWS, "raster_fwd_sub": 2 * B_VIEWS,
-                  "raster_bwd": B_VIEWS, "raster_bwd_sub": 2 * B_VIEWS}
+                  "raster_bwd": B_VIEWS, "raster_bwd_sub": 2 * B_VIEWS,
+                  "warp_fwd": B_VIEWS, "warp_bwd": B_VIEWS}
     flow_fn = S.make_train_step(opt_flow, W, H, data.max_time, E_WARP, cfg)
     ts_f, rates["train_it_s_flow_on"], flow_launches, flow_instances, hist = train_steps(
         flow_fn, ts_f, sampler_f, N_FLOW_WARM, N_FLOW_STEPS, "flow on", per_step_f)
     require(all(h[2] > 0 for h in hist), "a flow-on step has no flow term")
+    # the warp loss's counters over one flow-on step: a call a view, 2E warps each
+    obs.tracing(spans=False, counters=True)
+    obs.reset()
+    try:
+        ts_f, _ = flow_fn(ts_f, L.make_batch(data, sampler_f.next_ids(), dev))
+        warp_counts = {k: v for k, v in obs.report()["counters"].items()
+                       if k.startswith("loss.")}
+    finally:
+        obs.tracing(False)
+        obs.reset()
+    print(f"warp loss counters over one flow-on step: {json.dumps(warp_counts)}")
+    require(warp_counts == {"loss.warp_calls": B_VIEWS, "loss.warp_images": 2 * E_WARP * B_VIEWS},
+            f"warp loss counters {warp_counts}")
     mid_ce = 9 + 2 * E_WARP + 2
     for key, n in ((f"raster_fwd_sub CE={mid_ce}", B_VIEWS), ("raster_fwd_sub CE=11", B_VIEWS),
                    (f"raster_bwd_sub CE={mid_ce}", B_VIEWS), ("raster_bwd_sub CE=11", B_VIEWS)):
@@ -2534,25 +2646,7 @@ def main():
     _, busy = trace(lambda: flow_fn(ts_f, L.make_batch(data, sampler_f.next_ids(), dev)),
                     "flow-on train step")
     times["flow_step_device_ms"] = busy / 1e3
-    # the warp loss of one view alone (2E warps of W x H x 3, forward and
-    # backward): images, alphas and coordinates a few pixels off the grid
-    gen = torch.Generator(device=dev).manual_seed(3)
-    pix = pixel_grid(W, H, device=dev)
-    wl_in = [torch.rand(s, generator=gen, device=dev).requires_grad_(True)
-             for s in ((H, W, 3), (E_WARP, H, W, 3), (E_WARP, H, W), (H, W))]
-    wl_co = [(pix + 4 * torch.randn((E_WARP, H, W, 2), generator=gen, device=dev))
-             .requires_grad_(True) for _ in range(2)]
-
-    def warp_loss_fwd_bwd():
-        loss = losses.flow_warp_loss(*wl_in, *wl_co, W, H)
-        return torch.autograd.grad(loss, wl_in + wl_co)
-
-    # ~1,500 small launches: the host's dispatch sets the wall time, so the
-    # device's share is read from the profiler, not from CUDA events
-    warp_loss_fwd_bwd()
-    _, busy = trace(warp_loss_fwd_bwd, f"flow_warp_loss forward + backward of one view "
-                    f"({2 * E_WARP} warps of {W}x{H}x3)")
-    times["warp_loss_view_device_ms"] = busy / 1e3
+    warp_phase(dev, times)
 
     phase("12 exposure update")
     # a batch with an endpoint view; the loop's neighbour arguments

@@ -99,7 +99,19 @@ def reset_launches():
     instance_launches.clear()
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-KERNELS = ("raster_fwd", "raster_bwd")  # csrc/<name>.cu, entry point <name>
+_vp, _ci = ctypes.c_void_p, ctypes.c_int
+# csrc/<name>.cu for each library, and the argument types of its entry
+# points (each returns a CUDA error code); ``warp`` is the flow-warp loss's
+# pair (``ops/cuda_warp.py``), built and bound the same way
+ENTRY_POINTS = {
+    "raster_fwd": {"raster_fwd": [_vp] * 6 + [_ci] * 8 + [_vp],
+                   "raster_fwd_occupancy": [_ci, _ci, _ci, _vp]},
+    "raster_bwd": {"raster_bwd": [_vp] * 10 + [_ci] * 8 + [_vp],
+                   "raster_bwd_occupancy": [_ci, _ci, _ci, _vp]},
+    "warp": {"warp_fwd": [_vp] * 3 + [_ci] * 4 + [_vp],
+             "warp_bwd": [_vp] * 5 + [_ci] * 4 + [_vp]},
+}
+KERNELS = tuple(ENTRY_POINTS)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -182,14 +194,10 @@ def _library(name: str) -> ctypes.CDLL:
     if name not in _libs:
         so, _ = build_kernels((name,))[name]
         lib = ctypes.CDLL(str(so))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn = getattr(lib, name)
-        n_ptr = 6 if name == "raster_fwd" else 10
-        fn.argtypes = [vp] * n_ptr + [ci] * 8 + [vp]
-        fn.restype = ci
-        occ = getattr(lib, f"{name}_occupancy")
-        occ.argtypes = [ci, ci, ci, vp]
-        occ.restype = ci
+        for entry, argtypes in ENTRY_POINTS[name].items():
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
+            fn.restype = _ci
         _libs[name] = lib
     return _libs[name]
 

@@ -9,6 +9,8 @@ from __future__ import annotations
 import torch
 
 from mobgs_tpu_torch.core.image import ssim as _ssim
+from mobgs_tpu_torch.ops import cuda_warp
+from mobgs_tpu_torch.utils import observability as obs
 
 
 def l1_loss(pred: torch.Tensor, gt: torch.Tensor,
@@ -118,6 +120,9 @@ def normalize_coords(coords: torch.Tensor, width: int, height: int) -> torch.Ten
 # into a read, and wx = clip(x) - x0 saturates to 0/1 at the border, which
 # gives border padding's values. Coordinate gradients are zero outside
 # [0, W-1] × [0, H-1]; on the far border itself the one-sided derivative.
+# This is the plain route, a Python loop over the warps (CPU tensors and
+# ``backend="plain"``); CUDA tensors take ``ops/cuda_warp.py``'s kernels,
+# one launch a call each way, forward bit-equal to it.
 # ---------------------------------------------------------------------------
 
 def _warp_prep(coords_k: torch.Tensor, width: int, height: int):
@@ -200,25 +205,40 @@ class _WarpImages(torch.autograd.Function):
 
 
 def warp_images(imgs: torch.Tensor, coords: torch.Tensor,
-                width: int, height: int) -> torch.Tensor:
+                width: int, height: int, backend: str = "auto") -> torch.Tensor:
     """Bilinear-warp K images by K pixel-coord maps (see the note above).
 
     Args:
       imgs: [K, H, W, C].
       coords: [K, H, W, 2] source pixel coordinates (x, y).
+      backend: ``"auto"`` (the kernels of ``ops/cuda_warp.py`` for CUDA
+        tensors, the plain route for CPU tensors), ``"cuda"`` (the kernels;
+        raises for CPU tensors) or ``"plain"``, as ``RasterConfig.backend``.
 
     Returns:
       [K, H, W, C]; out[k, i, j] = imgs[k] sampled at coords[k, i, j].
+
+    Counters (while counting is on, kernel route only): ``loss.warp_calls``
+    one a call, ``loss.warp_images`` K.
     """
-    return _WarpImages.apply(imgs, coords, width, height)
+    if backend not in ("auto", "cuda", "plain"):
+        raise ValueError(f"unknown backend {backend!r}")
+    if backend == "cuda" and imgs.device.type != "cuda":
+        raise ValueError(f"backend='cuda' needs CUDA tensors, got {imgs.device}")
+    if backend == "plain" or imgs.device.type != "cuda":
+        return _WarpImages.apply(imgs, coords, width, height)
+    if obs.COUNTING:
+        obs.count("loss.warp_calls", host_int=1)
+        obs.count("loss.warp_images", host_int=imgs.shape[0])
+    return cuda_warp.WarpCuda.apply(imgs.contiguous(), coords.contiguous(), width, height)
 
 
 def flow_warp_loss(ori_image: torch.Tensor, latent_imgs: torch.Tensor,
                    latent_alphas: torch.Tensor, d_alpha: torch.Tensor,
                    exp2mid_coords: torch.Tensor, mid2exp_coords: torch.Tensor,
-                   width: int, height: int) -> torch.Tensor:
+                   width: int, height: int, backend: str = "auto") -> torch.Tensor:
     """Bidirectional flow-warp photometric consistency (train.py:659-675),
-    one view.
+    one view; its 2E warps are one :func:`warp_images` call on ``backend``.
 
     Args:
       ori_image: [H, W, 3] mid-exposure render.
@@ -231,7 +251,7 @@ def flow_warp_loss(ori_image: torch.Tensor, latent_imgs: torch.Tensor,
     ori_rep = ori_image[None].expand((E,) + ori_image.shape)
     imgs_all = torch.cat([ori_rep, latent_imgs], dim=0)
     coords_all = torch.cat([exp2mid_coords, mid2exp_coords], dim=0)
-    warped = warp_images(imgs_all, coords_all, width, height)
+    warped = warp_images(imgs_all, coords_all, width, height, backend)
 
     # the mid render warped to each exposure by the exp→mid coords, against
     # the latent render, masked by the latent dynamic alpha

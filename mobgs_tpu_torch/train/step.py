@@ -31,9 +31,11 @@ exposure-flow passes (``render_flow_passes``). On gauss-sharded rows each
 latent render and each flow pass is one ``render_view`` call; on the shared
 static pool each flow pass is. The compositing runs through the
 hand-written kernels for CUDA tensors (per step at B=2, E=9: 2 + 2 forward
-and 2 + 2 backward launches flow off, 2 + 2 + 2 and 2 + 2 + 2 flow on). The
-step updates the state in place (parameters and Adam moments) and returns
-it with new statistics and step count.
+and 2 + 2 backward launches flow off, 2 + 2 + 2 and 2 + 2 + 2 flow on), and
+so does the flow-warp loss (``ops/cuda_warp.py``: a view's 2E warps in one
+forward and one backward launch, 2 + 2 a step at B=2). The step updates
+the state in place (parameters and Adam moments) and returns it with new
+statistics and step count.
 """
 
 from __future__ import annotations
@@ -287,7 +289,8 @@ def make_forward(opt_cfg, width: int, height: int, max_time: float,
                 e2m = torch.stack(f_e2m[:half] + [zrow] + f_e2m[half:])
                 flow_ls.append(losses.flow_warp_loss(
                     mid.image, lat_f_imgs, lat_alphas, mid.d_alpha,
-                    pix[None] + e2m, pix[None] + m2e, width, height))
+                    pix[None] + e2m, pix[None] + m2e, width, height,
+                    backend=raster_cfg.backend))
 
         pred = torch.stack(preds).permute(0, 3, 1, 2)     # [B, 3, H, W]
         gt = batch.image.permute(0, 3, 1, 2)

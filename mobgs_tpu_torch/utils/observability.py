@@ -28,7 +28,10 @@ batched latent renders and the views they composite
 (``models/render.py::render_latents``: 2 and 16 a step at B=2, E=9);
 ``render.flow_calls`` and ``render.flow_views``, its batched exposure-flow
 passes and the passes they composite (``render_flow_passes``: 2 and 16 a
-step at B=2, E=9 with flow on).
+step at B=2, E=9 with flow on); ``loss.warp_calls`` and
+``loss.warp_images``, the flow-warp loss's kernel calls and the warps they
+take (``train/losses.py::warp_images`` on CUDA tensors: 2 and 36 a step at
+B=2, E=9 with flow on; 0 on the plain route).
 
 ``save_debug_grid`` and ``setup_seed`` are the ports of
 ``main_utils.py:49-92`` and ``train.py:941-947``.

@@ -25,6 +25,11 @@ Densify on the card vs the CPU: masks and drop counts exactly, rows 1e-6
 (the same formulas; the split noise is drawn on the CPU). Six loop
 iterations through the kernels vs the plain route: loss rtol 1e-5 per
 iteration, live counts, budgets and capacities equal.
+The flow-warp kernels vs the plain route: forward bit-equal (the same
+operations rounded one by one in the same order); image and coordinate
+gradients within WARP_REL of the largest magnitude (the kernel adds by
+atomics, the plain route by index_add_ and rolls, and sums the coordinate
+gradient's channels in its own order).
 """
 
 import numpy as np
@@ -37,10 +42,12 @@ from mobgs_tpu_torch.models import render as R
 from mobgs_tpu_torch.config import OptimizationParams
 from mobgs_tpu_torch.models import blce as B
 from mobgs_tpu_torch.models.sandwich import init_sandwich
-from mobgs_tpu_torch.ops import cuda_raster, projection, tiles
+from mobgs_tpu_torch.ops import cuda_raster, cuda_warp, projection, tiles
 from mobgs_tpu_torch.ops.rasterize import RasterConfig
 from mobgs_tpu_torch.train import densify as D
+from mobgs_tpu_torch.train import losses
 from mobgs_tpu_torch.train import step as S
+from mobgs_tpu_torch.utils import observability as obs
 
 W, H = 64, 48
 KMAT = np.array([[60.0, 0, W / 2], [0, 60.0, H / 2], [0, 0, 1]], np.float32)
@@ -49,6 +56,7 @@ ATOL = 1e-4
 BWD_REL = 1e-4   # measured at most 1.2e-6 at the protocol view (chip_smoke.py)
 STEP_REL = 1e-3  # measured at most 6e-7 per leaf at protocol shape
 DECODE_ATOL = 2.4e-7  # two units in the last place of a decoded value in [0.5, 1)
+WARP_REL = 1e-6
 CASES = ("default", "sub", "alpha_only", "image_only", "wide_ce29", "wide_ce33_sub",
          "wide_ce65_sub")
 # colour columns of the wide cases (the flow-on mid render at E = 9, 11, 27:
@@ -710,12 +718,18 @@ def _step_kernels_vs_plain(cuda, lambda_flow, num_warp=3):
     leaves = [*G.split_diff(ts.stat)[0], *G.split_diff(ts.dyn)[0],
               *S.sandwich_leaves(ts.sandwich), *ts.blce.params.leaves()]
     res = {}
+    # flow on, the kernels' route warps each of the 2 views in one forward
+    # and one backward launch; the plain route launches neither
+    n_warp = {"cuda": 2 if lambda_flow > 0 else 0, "plain": 0}
     for backend in ("cuda", "plain"):
         fwd = S.make_forward(opt, W, H, 1.0, E, cfg._replace(backend=backend))
         off = torch.zeros((2, 320, 2), device=cuda, requires_grad=True)
+        warps = dict(cuda_warp.launches)
         total, aux = fwd(ts.stat, ts.dyn, ts.sandwich, ts.blce, off, batch)
         res[backend] = (float(total.detach()), float(aux["flow"].detach()), torch.autograd.grad(
             total, leaves + [off], allow_unused=True))
+        assert {k: cuda_warp.launches[k] - warps[k] for k in warps} == {
+            "warp_fwd": n_warp[backend], "warp_bwd": n_warp[backend]}
     np.testing.assert_allclose(res["cuda"][0], res["plain"][0], rtol=1e-5)
     np.testing.assert_allclose(res["cuda"][1], res["plain"][1], rtol=1e-5)
     assert (res["cuda"][1] > 0) == (lambda_flow > 0)
@@ -739,6 +753,113 @@ def _step_kernels_vs_plain(cuda, lambda_flow, num_warp=3):
     assert {k: cuda_raster.launches[k] - before[k] for k in before} == {
         "raster_fwd": 2, "raster_fwd_sub": n_sub,
         "raster_bwd": 2, "raster_bwd_sub": n_sub}
+
+
+def _coord_at(x: float, size: int) -> np.float32:
+    """A float32 coordinate whose source point c·S/(S−1) − 0.5, rounded as
+    the warp rounds it, is exactly x."""
+    def src(c):
+        return np.float32(c * np.float32(size / (size - 1.0))) - np.float32(0.5)
+    c0 = np.float32((x + 0.5) * (size - 1.0) / size)
+    up = dn = c0
+    for _ in range(64):
+        for c in (up, dn):
+            if src(c) == np.float32(x):
+                return c
+        up, dn = np.nextafter(up, np.float32(np.inf)), np.nextafter(dn, np.float32(-np.inf))
+    raise AssertionError(f"no float32 coordinate maps to {x} at size {size}")
+
+
+def _warp_operands(dev, K=18, w=512, h=288, seed=0):
+    """Images, coordinates and an incoming gradient of a view's 2E warps at
+    the protocol view: coordinates a few pixels off the grid, and rows of
+    points outside the image, exactly on its near and far borders, and on
+    integer pixels (every integer has such a coordinate at 512x288; at
+    smaller sizes some have none)."""
+    rng = np.random.default_rng(seed)
+    imgs = rng.random((K, h, w, 3), dtype=np.float32)
+    gx, gy = np.meshgrid(np.arange(w, dtype=np.float32), np.arange(h, dtype=np.float32))
+    coords = (np.stack([gx, gy], -1)[None]
+              + 4 * rng.standard_normal((K, h, w, 2)).astype(np.float32))
+    coords[:, 0, :, 0] = _coord_at(w - 1, w)            # far border, x
+    coords[:, 1, :, 1] = _coord_at(h - 1, h)            # far border, y
+    coords[:, 2, :, 0] = _coord_at(0, w)                # near border, x
+    coords[:, 3, :, 1] = _coord_at(0, h)                # near border, y
+    coords[:, 4, :, 0] = [_coord_at(j % w, w) for j in range(w)]      # integer x
+    coords[:, 5, :, 1] = [_coord_at(j % h, h) for j in range(w)]      # integer y
+    coords[:, 6, :, :] = rng.uniform(-60, -1, (K, w, 2))                # outside, low
+    coords[:, 7, :, 0] = rng.uniform(w, w + 60, (K, w))                 # outside, high
+    coords[:, 7, :, 1] = rng.uniform(h, h + 60, (K, w))
+    coords[:, 8, :, 0] = np.float32(w - 1)   # the coordinate W-1 maps past the far border
+    g = rng.standard_normal((K, h, w, 3)).astype(np.float32)
+    return [torch.as_tensor(a, device=dev) for a in (imgs, coords, g)]
+
+
+@pytest.mark.gpu
+def test_warp_kernels_match_plain_on_card(cuda):
+    """The flow-warp kernel pair against the plain route at 512x288, K=18:
+    forward bit-equal, gradients within WARP_REL, one launch each way."""
+    imgs, coords, g = _warp_operands(cuda)
+    h, w = imgs.shape[1:3]
+    res = {}
+    for name, fn in (("cuda", cuda_warp.WarpCuda.apply),
+                     ("plain", losses._WarpImages.apply)):
+        a, c = imgs.clone().requires_grad_(True), coords.clone().requires_grad_(True)
+        before = dict(cuda_warp.launches)
+        out = fn(a, c, w, h)
+        grads = torch.autograd.grad(out, (a, c), g)
+        torch.cuda.synchronize()
+        n = 1 if name == "cuda" else 0
+        assert {k: cuda_warp.launches[k] - before[k] for k in before} == {
+            "warp_fwd": n, "warp_bwd": n}
+        res[name] = (out.detach(), *grads)
+    (ok, gik, gck), (op, gip, gcp) = res["cuda"], res["plain"]
+    assert torch.equal(ok, op)
+    assert _rel_err(gik, gip) <= WARP_REL
+    assert _rel_err(gck, gcp) <= WARP_REL
+    # outside the image the coordinate gradient is zero on both routes
+    assert not gck[:, 6:8].any() and not gcp[:, 6:8].any()
+    assert gck[:, 0, :, 0].any()  # the far border's one-sided derivative
+
+
+@pytest.mark.gpu
+def test_warp_kernels_reject_what_they_cannot_take(cuda):
+    imgs, coords, g = (torch.rand(s, device=cuda) for s in ((2, 16, 32, 3), (2, 16, 32, 2),
+                                                            (2, 16, 32, 3)))
+    wide = torch.zeros((2, 16, 32, 4), device=cuda)
+    bad = {"cpu": (imgs.cpu(), coords.cpu()),
+           "f64": (imgs.double(), coords),
+           "non-contiguous": (wide[..., :3], coords),
+           "K": (imgs, coords[:1].contiguous()),
+           "size": (imgs[:, :, :31].contiguous(), coords[:, :, :31].contiguous())}
+    for case, (a, c) in bad.items():
+        with pytest.raises(ValueError):
+            cuda_warp.warp_fwd(a, c, 32, 16)
+        with pytest.raises(ValueError):
+            cuda_warp.warp_bwd(a, c, g, 32, 16)
+    with pytest.raises(ValueError):
+        cuda_warp.warp_bwd(imgs, coords, g[:, :, :, :2].contiguous(), 32, 16)
+    with pytest.raises(ValueError):
+        losses.warp_images(imgs.cpu(), coords.cpu(), 32, 16, backend="cuda")
+
+
+@pytest.mark.gpu
+def test_warp_counters_on_card(cuda):
+    """``loss.warp_calls`` / ``loss.warp_images`` read 1 and K for one call
+    through the kernels, and nothing on the plain route."""
+    imgs, coords, _ = _warp_operands(cuda, K=6)
+    counts = {}
+    obs.tracing(spans=False, counters=True)
+    try:
+        for backend in ("auto", "plain"):
+            obs.reset()
+            losses.warp_images(imgs, coords, 512, 288, backend=backend)
+            counts[backend] = obs.report()["counters"]
+    finally:
+        obs.tracing(False)
+        obs.reset()
+    assert counts["auto"] == {"loss.warp_calls": 1, "loss.warp_images": 6}
+    assert counts["plain"] == {}
 
 
 @pytest.mark.gpu
