@@ -148,13 +148,7 @@ Sandwich and BLCE weights:
     instance (every kernel launched), the checkpoint read back; the four
     kernels at view 0 of each run's final state (CE=9 and CE=29 + sub,
     forward and backward) against their plain versions, timed beside their
-    bounds; and the camera-shared static pool on the iPhone run's state
-    (dynamic pool a ninth of the static one) and on the protocol scene (a
-    half): one flow-on step shared and unshared (loss within LOSS_RTOL,
-    leaves within STEP_REL), the merged bins and the forward images of the
-    mid render and a flow pass bit-equal, and the device ms per step of both
-    with their launches (equal but the CE=11 + sub flow passes: one launch a
-    pass shared, one a view unshared);
+    bounds;
 20. the rest of the library on the card: the gsplat shim
     (``compat.rasterization``) on the protocol scene at t = 0.5, C = 3
     "RGB+ED" and C = 9 "RGB" (CE = 5 and 11), forward and backward through
@@ -293,13 +287,11 @@ STEREO_METRIC_ATOL = 1e-5
 # and a skew entry), and a D-NeRF Blender scene at 800x800 (2,500 tiles), each
 # REG_FRAMES train and as many test frames (the train CLI's eval pairs test
 # view i with train view i, eval/align.py), trained REG_ITERS iterations (cut
-# from 30,000) by the train CLI with the defaults of Config; then the shared
-# static pool, SHARED_STEPS timed steps after SHARED_WARM
+# from 30,000) by the train CLI with the defaults of Config
 REG_ROOT = os.path.join(ROOT, "build", "chip_smoke_registry")
 REG_FRAMES, REG_ITERS = 24, 10
 IPHONE_W, IPHONE_H, IPHONE_SKEW = 360, 480, 1.5
 BLENDER_W = 800
-SHARED_WARM, SHARED_STEPS = 3, 10
 # the rest of the library (phase 20): the gsplat shim at C = 3 "RGB+ED" and
 # C = 9 "RGB" (composites of CE = 5 and 11) on the protocol scene at t = 0.5;
 # the deformation field at ModelHiddenParams' widths over the 60,000 slots at
@@ -1083,37 +1075,29 @@ def write_blender_scene(root, dev):
     return data
 
 
-def registry_phase(dev, card, times, protocol, trace):
+def registry_phase(dev, card, times):
     """Phase 19: the train CLI's registry branch on a dycheck iPhone scene
     (360x480) and a D-NeRF Blender scene (800x800) written from the
     generator, each as a user runs it (``python -m mobgs_tpu_torch.cli.train
     -s <scene> --eval_tto``, the defaults of ``Config``: flow on, E=9, B=1,
     40,000 + 20,000 depth seeds), for REG_ITERS iterations; the four kernels
-    against their plain versions at one view of each run's final state; the
-    camera-shared static pool against the unshared step on the iPhone run's
-    state and on the protocol scene, timed over SHARED_STEPS steps and one
-    step of each traced with ``trace`` (device busy time by kernel name).
+    against their plain versions at one view of each run's final state.
     Returns the kernels' launches over the two runs."""
     from mobgs_tpu_torch.cli import train as cli
-    from mobgs_tpu_torch.config import Config
     from mobgs_tpu_torch.data import scene as scene_mod
     from mobgs_tpu_torch.data.cameras import Camera
     from mobgs_tpu_torch.eval import tto
     from mobgs_tpu_torch.io import checkpoint as ckpt
     from mobgs_tpu_torch.io import ply, torch_ckpt
-    from mobgs_tpu_torch.models import gaussians as G
-    from mobgs_tpu_torch.models import render as R
     from mobgs_tpu_torch.ops import cuda_raster, tiles
     from mobgs_tpu_torch.ops import rasterize as rasterize_mod
     from mobgs_tpu_torch.ops.rasterize import RasterConfig
     from mobgs_tpu_torch.train import loop as L
     from mobgs_tpu_torch.train import debug_vis
-    from mobgs_tpu_torch.train import step as S
     from mobgs_tpu_torch.train import warm
 
     shutil.rmtree(REG_ROOT, ignore_errors=True)
     launches_total = {}
-    finals = {}
     for name, writer, (w, h) in (("iphone", write_iphone_scene, (IPHONE_W, IPHONE_H)),
                                  ("blender", write_blender_scene, (BLENDER_W, BLENDER_W))):
         scene, out = os.path.join(REG_ROOT, name, "scene"), os.path.join(REG_ROOT, name, "out")
@@ -1223,8 +1207,7 @@ def registry_phase(dev, card, times, protocol, trace):
         cfg = RasterConfig(tiles_per_gauss=last["tiles_per_gauss"],
                            max_per_tile=last["max_per_tile"])
         with torch.no_grad():
-            geom, splats = R.assemble_project(ts.stat, ts.dyn, cam, w, h, data.max_time,
-                                              config=cfg)
+            geom, splats = assembled_splats(ts.stat, ts.dyn, cam, w, h, data.max_time, None, cfg)
             bins = tiles.bin_gaussians(splats, w, h, tiles_per_gauss=cfg.tiles_per_gauss,
                                        max_per_tile=cfg.max_per_tile)
         ids, cnt, ntx = bins.gauss_ids.contiguous(), bins.counts.contiguous(), bins.n_tiles_x
@@ -1280,115 +1263,18 @@ def registry_phase(dev, card, times, protocol, trace):
                   f"{100 * bound(of, bf) / ms_f:.1f} % of bound), backward {ms_b:.4f} ms with the "
                   f"zeroed outputs (plain {pms_b:.3f}, bound {bound(ob, bb):.4f} by "
                   f"{bound_by(ob, bb)}, {100 * bound(ob, bb) / ms_b:.1f} % of bound), on {card}")
-        finals[name] = (ts, loaded, cfg)
 
-    # the camera-shared static pool against the unshared step
-    ts_p, data_p, cfg_p, opt_p = protocol
-    for name, (ts, data, cfg), opt, batch_views in (
-            ("iphone", finals["iphone"], None, 1),
-            ("protocol", (ts_p(), data_p, cfg_p), opt_p, B_VIEWS)):
-        opt = opt or Config().opt
-        w, h = data.width, data.height
-        ids_b = np.arange(batch_views) * 3 + 1
-        batch = L.make_batch(data, ids_b, dev)
-        cam = Camera(w2c=batch.w2c[0], K=batch.K[0], time=batch.time[0])
-        # the bins and the forward images of the mid render and one flow pass
-        with torch.no_grad():
-            _, sp = R.assemble_project(ts.stat, ts.dyn, cam, w, h, data.max_time, -1.0, cfg)
-            # the flow pass's splats, static rows binned once and the dynamic
-            # ones merged, against the binning of the concatenation
-            Ms = ts.stat.capacity
-            sb = tiles.bin_static(type(sp)(*(x[:Ms] for x in sp)), w, h, cfg.tiles_per_gauss,
-                                  cfg.max_per_tile)
-            merged = tiles.merge_dyn_bins(sb, type(sp)(*(x[Ms:] for x in sp)), Ms, w, h,
-                                          cfg.tiles_per_gauss, cfg.max_per_tile)
-            ref = tiles.bin_gaussians(sp, w, h, cfg.tiles_per_gauss, cfg.max_per_tile)
-            live = torch.arange(ref.gauss_ids.shape[1], device=dev)[None] < ref.counts[:, None]
-            bins_equal = (torch.equal(merged.counts, ref.counts)
-                          and int(merged.max_count) == int(ref.max_count)
-                          and torch.equal(torch.where(live, merged.gauss_ids, -1),
-                                          torch.where(live, ref.gauss_ids, -1)))
-            renders = {}
-            for mode in (True, False):
-                bg = torch.zeros(3, device=dev)
-                kw = dict(get_dynamic=True, subset_alpha_only=True, config=cfg,
-                          shared=R.make_shared_view(ts.stat, cam, w, h, cfg) if mode else None)
-                mid = R.render_view(ts.stat, ts.dyn, ts.sandwich, cam, w, h, bg, data.max_time,
-                                    None, **kw)
-                flw = R.render_view(ts.stat, ts.dyn, ts.sandwich, cam, w, h, bg, data.max_time,
-                                    -1.0, want_depth=False, want_alpha=False, **kw)
-                renders[mode] = [mid.image, mid.alpha, mid.depth, mid.d_alpha, flw.image,
-                                 flw.d_alpha]
-            images_equal = all(torch.equal(a, b) for a, b in zip(renders[True], renders[False]))
-        res, steps = {}, {}
-        leaves = [*G.split_diff(ts.stat)[0], *G.split_diff(ts.dyn)[0],
-                  *S.sandwich_leaves(ts.sandwich),
-                  *ts.blce.params.leaves()]
-        for mode in (True, False):
-            fwd = S.make_forward(opt, w, h, data.max_time, E_WARP, cfg, shared_static=mode)
-            off = torch.zeros((batch_views, ts.stat.capacity + ts.dyn.capacity, 2), device=dev,
-                              requires_grad=True)
-            with torch.enable_grad():
-                for p in leaves:
-                    p.requires_grad_(True)
-                total, aux = fwd(ts.stat, ts.dyn, ts.sandwich, ts.blce, off, batch)
-                grads = torch.autograd.grad(total, leaves + [off], allow_unused=True)
-            for p in leaves:
-                p.requires_grad_(False)
-            res[mode] = (float(total.detach()), float(aux["flow"].detach()), grads)
-        loss_rel = abs(res[True][0] - res[False][0]) / abs(res[False][0])
-        leaf_rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
-                       for a, b in zip(res[True][2], res[False][2])
-                       if b is not None and b.any())
-        # device ms per step: CUDA events over 10 steps after 3 warm-up
-        for mode in (True, False):
-            step = S.make_train_step(opt, w, h, data.max_time, E_WARP, cfg, shared_static=mode)
-            sampler = L.BatchSampler(data.w2c.shape[0], batch_views, seed=5)
-            for _ in range(SHARED_WARM):
-                ts, _ = step(ts, L.make_batch(data, sampler.next_ids(), dev))
-            batches = [L.make_batch(data, sampler.next_ids(), dev) for _ in range(SHARED_STEPS)]
-            torch.cuda.synchronize()
-            cuda_raster.reset_launches()
-            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            t0 = time.time()
-            start.record()
-            for b in batches:
-                ts, m = step(ts, b)
-            stop.record()
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.time() - t0) / SHARED_STEPS
-            launches = dict(cuda_raster.instance_launches)
-            b = L.make_batch(data, sampler.next_ids(), dev)
-            (ts, _), busy_us = trace(lambda: step(ts, b), f"{name} step, shared_static={mode}")
-            steps[mode] = (start.elapsed_time(stop) / SHARED_STEPS, wall_ms, launches,
-                           busy_us / 1e3)
-        print(f"shared static ({name}: {ts.stat.capacity} + {ts.dyn.capacity} slots, "
-              f"{int(ts.stat.num_live())} + {int(ts.dyn.num_live())} live, {w}x{h}, B={batch_views}, "
-              f"E={E_WARP}, flow on): loss shared {res[True][0]:.7f} unshared {res[False][0]:.7f} "
-              f"(rel {loss_rel:.3g}), worst leaf {leaf_rel:.3g} of its magnitude, bins bit-equal "
-              f"{bins_equal}, forward images bit-equal {images_equal}; per step shared "
-              f"{steps[True][0]:.2f} ms, unshared {steps[False][0]:.2f} ms on the card's clock "
-              f"over {SHARED_STEPS} steps after {SHARED_WARM} (the device waits on the host: the "
-              f"wall clock reads {steps[True][1]:.1f} / {steps[False][1]:.1f}); device busy in one "
-              f"traced step shared {steps[True][3]:.2f} ms, unshared {steps[False][3]:.2f} ms; "
-              f"launches shared {json.dumps(steps[True][2])}, unshared "
-              f"{json.dumps(steps[False][2])}; on {card}")
-        times[f"shared_{name}_ms"] = steps[True][0]
-        times[f"unshared_{name}_ms"] = steps[False][0]
-        times[f"shared_{name}_busy_ms"] = steps[True][3]
-        times[f"unshared_{name}_busy_ms"] = steps[False][3]
-        require(loss_rel <= LOSS_RTOL and leaf_rel <= STEP_REL["stat"],
-                f"shared static {name}: loss {loss_rel}, leaves {leaf_rel}")
-        require(bins_equal, f"shared static {name}: merged bins differ from bin_gaussians")
-        require(images_equal, f"shared static {name}: forward images differ")
-        # the shared pool composites each exposure-flow pass alone, the unshared
-        # step a view's E-1 passes in one launch (render_flow_passes); the rest alike
-        n_flow = batch_views * SHARED_STEPS
-        flow_keys = ("raster_fwd_sub CE=11", "raster_bwd_sub CE=11")
-        want = dict(steps[False][2], **{k: (E_WARP - 1) * n_flow for k in flow_keys})
-        require(all(steps[False][2].get(k) == n_flow for k in flow_keys)
-                and steps[True][2] == want, f"shared static {name}: launches differ")
     return launches_total
+
+
+def assembled_splats(stat, dyn, cam, w, h, max_time, delta_exposure, cfg):
+    """The combined set assembled at the camera's (exposure-shifted) time,
+    and its projection: (SceneGeom, ProjectedSplats)."""
+    from mobgs_tpu_torch.models import render as R
+    from mobgs_tpu_torch.ops import projection
+    geom = R.assemble(stat, dyn, cam.time, max_time, delta_exposure)
+    return geom, projection.project(geom.means, geom.quats, geom.scales, cam.w2c, cam.K, w, h,
+                                    eps2d=cfg.eps2d, near=cfg.near, sigma_cut=cfg.sigma_cut)
 
 
 def rel_err(a, b):
@@ -2238,8 +2124,7 @@ def main():
                       time=torch.tensor(float(data.time[i]), device=dev))
 
     phase("4 kernel vs plain")
-    geom, splats = R.assemble_project(stat, dyn, cam(0), W, H, data.max_time,
-                                      config=cfg)
+    geom, splats = assembled_splats(stat, dyn, cam(0), W, H, data.max_time, None, cfg)
     bins = tiles.bin_gaussians(splats, W, H, tiles_per_gauss=cfg.tiles_per_gauss,
                                max_per_tile=cfg.max_per_tile)
     N = geom.means.shape[0]
@@ -2764,7 +2649,7 @@ def main():
     # the exposure-flow pass: colours and this view's flow to the first
     # exposure's geometry as two columns, the dynamic chain, no depth or
     # weight column (CE = 9 + 2)
-    _, splats_e = R.assemble_project(stat, dyn, cam(0), W, H, data.max_time, -1.0, cfg)
+    _, splats_e = assembled_splats(stat, dyn, cam(0), W, H, data.max_time, -1.0, cfg)
     col_flow = torch.cat([geom.colors, splats.means2d - splats_e.means2d], 1).detach().contiguous()
     rec_sub = cuda_raster.pack_records(splats, geom.opacity, sub_op).detach()
     with torch.no_grad():
@@ -2873,8 +2758,8 @@ def main():
     k_mat[1, 1] *= 0.25
     k_mat[0, 2] = k_mat[1, 2] = K_VIEW / 2
     cam_k = Camera(w2c=cam(0).w2c, K=torch.as_tensor(k_mat, device=dev), time=cam(0).time)
-    geom_k, splats_k = R.assemble_project(stat, dyn, cam_k, K_VIEW, K_VIEW, data.max_time,
-                                          config=cfg)
+    geom_k, splats_k = assembled_splats(stat, dyn, cam_k, K_VIEW, K_VIEW, data.max_time,
+                                        None, cfg)
     splats_k = projection.ProjectedSplats(*(x.detach() for x in splats_k))
     opac_k = (0.1 * geom_k.opacity).detach()
     ones_k = torch.ones(len(opac_k), 1, device=dev)
@@ -3158,7 +3043,7 @@ def main():
     stereo_phase(dev, card, times)
 
     phase("19 registry runs: the train CLI on an iPhone and a Blender scene")
-    reg_launches = registry_phase(dev, card, times, (train_state, data, cfg, opt_flow), trace)
+    reg_launches = registry_phase(dev, card, times)
     for e in entries:
         e["launches"] += reg_launches.get(e["name"], 0)
     print(f"the kernels' launches in the two registry runs: {json.dumps(reg_launches)}")

@@ -1,28 +1,28 @@
 """Scene rendering — spline-deformed dynamic + static Gaussian composition
 (port of ``mobgs_tpu/models/render.py``).
 
-Each (camera, time) evaluation is one projection and one binning, with
-subset passes (dynamic-only, static-only) as opacity masks over the same
-tiles; optical flow is a 2D displacement composited as extra colour
-columns. With ``shared=`` (``make_shared_view``) the static pool's
-projection and binning are made once per camera and reused by every pass
-at that camera, only the dynamic rows projected and merged per pass.
+One pipeline renders (:func:`render_views`): V views at one time, view v at
+camera ``w2c[v]`` (or one camera for all) and exposure shift
+``delta_exposure[v]``, with the static half assembled once and the dynamic
+half at the V times in one broadcast evaluation, then
+``ops/rasterize.py::rasterize`` over the leading view axis (one projection,
+each view binned on its own, one composite launch a pass over all their
+tiles) and one decode with each camera's rays. Subset passes
+(dynamic-only, static-only) are opacity masks over the same tiles; optical
+flow is a 2D displacement composited as extra colour columns. One view
+(:func:`render_view`) is the same call without the view axis.
 
-The train step's latent renders of a view, V cameras at one time with
-V exposure shifts, run as one batched pass (``render_latents``): the
-static half assembled once, the dynamic half at the V times in one
-broadcast evaluation, the V cameras projected together, each binned on
-its own, one composite launch over all their tiles and one decode; each
-view's features equal its own ``render_view`` call's to the bit. Its
-exposure-flow passes, V time shifts at the view's own camera, run the same
-way (``render_flow_passes``), with their flow columns and dynamic alpha.
+The train step's renders of a view are three calls of it: its E-1 latent
+cameras (:func:`render_latents`), its E-1 exposure-flow passes at its own
+camera (:func:`render_flow_passes`) and the mid render (one view). Each
+view's features are those of its own one-view call to the bit, from the
+same float operations; the decode's [V·H·W, 12] @ [12, 6] product may take
+another cuBLAS kernel than one view's, and round some values in their last
+place (on the CPU it gives the calls' bits).
 
-The entries the train step and the exposure update call (``render_view``,
-``render_latents``, ``render_flow_passes``, ``get_flow_static``,
-``make_shared_view``, ``project_dyn2d``, ``project_combined``,
-``assemble_project``) run in the
-span ``render`` (``utils/observability.py``); a nested call in its own, one
-level down.
+:func:`render_views`, :func:`project_combined` and :func:`get_flow_static`
+run in the span ``render`` (``utils/observability.py``); a nested call in
+its own, one level down.
 """
 
 from __future__ import annotations
@@ -34,9 +34,8 @@ import torch
 from mobgs_tpu_torch.data.cameras import Camera, cam_rays, pixel_grid
 from mobgs_tpu_torch.models import gaussians as G
 from mobgs_tpu_torch.models.sandwich import SandwichParams, apply_sandwich
-from mobgs_tpu_torch.ops import cuda_raster, projection, tiles
-from mobgs_tpu_torch.ops.rasterize import (RasterConfig, RasterOut,
-                                           make_shared_static, rasterize)
+from mobgs_tpu_torch.ops import projection
+from mobgs_tpu_torch.ops.rasterize import RasterConfig, rasterize
 from mobgs_tpu_torch.utils import observability as obs
 
 
@@ -108,42 +107,14 @@ def assemble_static(stat: G.GaussianState):
     return s_means, s_quats, s_scales, s_opac, s_colors
 
 
-@obs.spanned("render")
-def make_shared_view(stat: G.GaussianState, cam: Camera,
-                     width: int, height: int,
-                     config: RasterConfig = RasterConfig()):
-    """Project and bin the static pool once for a camera
-    (``ops/rasterize.make_shared_static``), reused by the mid render and the
-    exposure-flow passes of the view, which differ only in the dynamic
-    rows. The returned SharedStatic is differentiable through its
-    projection."""
-    s_means, s_quats, s_scales, _, _ = assemble_static(stat)
-    return make_shared_static(s_means, s_quats, s_scales, cam.w2c, cam.K,
-                              width, height, config)
-
-
-@obs.spanned("render")
-def project_dyn2d(dyn: G.GaussianState, cam: Camera,
-                  width: int, height: int, max_time: float = 1.0,
-                  delta_exposure=None,
-                  config: RasterConfig = RasterConfig()) -> torch.Tensor:
-    """2D projections of the DYNAMIC rows only at a time (static rows of a
-    flow-colour difference are exactly zero)."""
-    d_means, d_quats, d_scales, _, _ = assemble_dyn(dyn, cam.time, max_time,
-                                                    delta_exposure)
-    splats = projection.project(d_means, d_quats, d_scales,
-                                cam.w2c, cam.K, width, height,
-                                eps2d=config.eps2d, near=config.near,
-                                sigma_cut=config.sigma_cut)
-    return splats.means2d
-
-
 def _bg9(bg3: torch.Tensor) -> torch.Tensor:
     """9-channel background = bg3 tiled x3 (renderer :90-91)."""
     return torch.cat([bg3, bg3, bg3])
 
 
 class RenderOut(NamedTuple):
+    """A render's outputs; every tensor but ``tile_max`` carries the call's
+    leading view axis [V, ...] where it rendered V views."""
     image: torch.Tensor       # [H, W, 3] decoded RGB (combined)
     depth: torch.Tensor       # [H, W] expected depth (combined)
     alpha: torch.Tensor       # [H, W] (combined)
@@ -159,7 +130,142 @@ class RenderOut(NamedTuple):
     tile_max: torch.Tensor | int = 0  # pre-clamp peak tile occupancy
 
 
+def _assemble_views(stat: G.GaussianState, dyn: G.GaussianState, time,
+                    max_time: float, delta_exposure, views: tuple[int, ...]):
+    """:func:`assemble`'s fields, over a leading axis of V views (``views``
+    (V,); () for one view) at one time, view v shifted by
+    ``delta_exposure[v]`` (None for none): the static half assembled once,
+    the dynamic half at the V times in one broadcast evaluation; each view's
+    rows those of its own call, to the bit. Returns (means, quats, scales,
+    opacity, colors), each [V, N, ...] (or [N, ...])."""
+    if views and delta_exposure is not None:
+        delta_exposure = delta_exposure.reshape(views + (1, 1))
+    dyn_rows = assemble_dyn(dyn, time, max_time, delta_exposure)
+
+    def per_view(s, d):  # the static rows, then the view's dynamic
+        if views:
+            s = s.expand(views + s.shape)
+            d = d if d.ndim == s.ndim else d.expand(views + d.shape)
+        return torch.cat([s, d], dim=len(views))
+
+    return tuple(per_view(s, d) for s, d in zip(assemble_static(stat), dyn_rows))
+
+
+def _pool_masks(stat: G.GaussianState, dyn: G.GaussianState, get_dynamic: bool,
+                get_static: bool):
+    """[P, N] opacity masks, 1.0 on the dynamic rows (with ``get_dynamic``)
+    then on the static rows (with ``get_static``); None for neither."""
+    Ms = stat.capacity
+    rows = ([slice(Ms, None)] if get_dynamic else []) + ([slice(0, Ms)] if get_static else [])
+    if not rows:
+        return None
+    masks = torch.zeros((len(rows), Ms + dyn.capacity), dtype=torch.float32,
+                        device=stat.xyz.device)
+    for i, r in enumerate(rows):
+        masks[i, r] = 1.0
+    return masks
+
+
 @obs.spanned("render")
+def render_views(stat: G.GaussianState, dyn: G.GaussianState,
+                 sandwich: SandwichParams, w2c: torch.Tensor, K: torch.Tensor,
+                 time, width: int, height: int, bg3: torch.Tensor | None = None,
+                 max_time: float = 1.0, delta_exposure=None,
+                 get_static: bool = False, get_dynamic: bool = False,
+                 extra_colors: torch.Tensor | None = None,
+                 flow_to: torch.Tensor | None = None,
+                 means2d_offset: torch.Tensor | None = None,
+                 subset_alpha_only: bool = False,
+                 want_depth: bool = True, want_alpha: bool = True,
+                 config: RasterConfig = RasterConfig()) -> RenderOut:
+    """Render V views at one time (reference `render()`,
+    ``render.py:157-248``), in one pass.
+
+    Args:
+      w2c: [V, 4, 4] the views' cameras, or [4, 4] one camera for every
+        view; K [3, 3] their intrinsics.
+      delta_exposure: [V] the views' exposure shifts; with one camera a
+        scalar (or None) renders one view, and every output is then
+        without the view axis.
+      bg3: [3] background; needed only with ``want_alpha``.
+      extra_colors: [N, F] (or [V, N, F]) additional per-Gaussian channels
+        composited with zero background (e.g. 2D flow displacements).
+      flow_to: [N, 2] screen positions: each view's flow columns
+        ``(flow_to − means2d).detach()`` from its own projection, composited
+        after ``extra_colors`` (``ops/rasterize.py``).
+      means2d_offset: [N, 2] the view-space gradient tap.
+      subset_alpha_only: the static/dynamic subset passes composite only
+        alpha; the first of them rides the main pass as the kernel's
+        fused second chain. d_image/d_depth/s_image stay None.
+      want_depth, want_alpha: composite the extended depth / weight
+        columns; when off, depth/alpha come back as zeros and the
+        background term is skipped.
+    """
+    if w2c.ndim == 3:
+        views = (w2c.shape[0],)
+    elif isinstance(delta_exposure, torch.Tensor) and delta_exposure.ndim:
+        views = tuple(delta_exposure.shape)
+    else:
+        views = ()
+    means, quats, scales, opac, colors = _assemble_views(stat, dyn, time, max_time,
+                                                         delta_exposure, views)
+    n_extra = (0 if extra_colors is None else extra_colors.shape[-1]) \
+        + (0 if flow_to is None else 2)
+    bg = None
+    if want_alpha:
+        bg = _bg9(bg3)
+        if n_extra:
+            bg = torch.cat([bg, torch.zeros(n_extra, dtype=bg.dtype, device=bg.device)])
+    if extra_colors is not None:
+        colors = torch.cat([colors, extra_colors], dim=-1)
+
+    subsets = _pool_masks(stat, dyn, get_dynamic, get_static)
+    pass_masks = alpha_masks = None
+    if subset_alpha_only:
+        alpha_masks = subsets
+    elif subsets is not None:
+        pass_masks = torch.cat([torch.ones_like(subsets[:1]), subsets])
+    viewmat = w2c.expand(views + (4, 4)) if views and w2c.ndim == 2 else w2c
+    out = rasterize(means, quats, scales, opac, colors, viewmat, K, width, height,
+                    background=bg, pass_masks=pass_masks, alpha_masks=alpha_masks,
+                    means2d_offset=means2d_offset, flow_to=flow_to,
+                    want_depth=want_depth, want_alpha=want_alpha, config=config,
+                    segments=(stat.capacity, dyn.capacity))
+
+    rays = cam_rays(Camera(w2c=w2c, K=K, time=time), width, height)
+
+    def passed(x, i):  # pass i of a [V, P, ...] (or [P, ...]) output
+        return x.select(len(views), i)
+
+    feat = passed(out.images, 0)
+    image = apply_sandwich(sandwich, feat[..., :9], rays)
+    i = 1
+    j = 0
+    d_image = d_depth = d_alpha = s_image = s_alpha = None
+    if get_dynamic:
+        if subset_alpha_only:
+            d_alpha = passed(out.sub_alphas, j)
+            j += 1
+        else:
+            d_image = apply_sandwich(sandwich, passed(out.images, i)[..., :9], rays)
+            d_depth = passed(out.depths, i)
+            d_alpha = passed(out.alphas, i)
+            i += 1
+    if get_static:
+        if subset_alpha_only:
+            s_alpha = passed(out.sub_alphas, j)
+            j += 1
+        else:
+            s_image = apply_sandwich(sandwich, passed(out.images, i)[..., :9], rays)
+            s_alpha = passed(out.alphas, i)
+            i += 1
+    return RenderOut(image=image, depth=passed(out.depths, 0), alpha=passed(out.alphas, 0),
+                     d_image=d_image, d_depth=d_depth, d_alpha=d_alpha,
+                     s_image=s_image, s_alpha=s_alpha, feat=feat[..., :9],
+                     means2d=out.means2d, radii=out.radii,
+                     flow=feat[..., 9:] if n_extra else None, tile_max=out.tile_max)
+
+
 def render_view(stat: G.GaussianState, dyn: G.GaussianState,
                 sandwich: SandwichParams, cam: Camera,
                 width: int, height: int, bg3: torch.Tensor,
@@ -170,224 +276,55 @@ def render_view(stat: G.GaussianState, dyn: G.GaussianState,
                 subset_alpha_only: bool = False,
                 want_depth: bool = True,
                 want_alpha: bool = True,
-                precomputed: tuple | None = None,
-                shared=None,
                 config: RasterConfig = RasterConfig()) -> RenderOut:
-    """Render one view at one time (reference `render()`,
-    ``render.py:157-248``).
-
-    Args:
-      extra_colors: [N, F] additional per-Gaussian channels composited
-        with zero background (e.g. 2D flow displacements).
-      subset_alpha_only: the static/dynamic subset passes composite only
-        alpha; the first of them rides the main pass as the kernel's
-        fused second chain. d_image/d_depth/s_image stay None.
-      want_depth, want_alpha: composite the extended depth / weight
-        columns; when off, depth/alpha come back as zeros and the
-        background term is skipped.
-      precomputed: (SceneGeom, ProjectedSplats) from assemble_project.
-      shared: SharedStatic from make_shared_view for this camera; only the
-        dynamic rows are projected and merged here (exclusive with
-        precomputed).
-    """
-    if precomputed is not None:
-        geom, splats = precomputed
-    else:
-        geom = assemble(stat, dyn, cam.time, max_time, delta_exposure)
-        splats = None
-    colors = geom.colors
-    bg = _bg9(bg3) if want_alpha else None
-    if extra_colors is not None:
-        colors = torch.cat([colors, extra_colors], dim=1)
-        if bg is not None:
-            bg = torch.cat([bg, torch.zeros(extra_colors.shape[1],
-                                            dtype=bg.dtype, device=bg.device)])
-
-    masks = [torch.ones_like(geom.stat_mask)]
-    sub_masks = []
-    sub_list = sub_masks if subset_alpha_only else masks
-    if get_dynamic:
-        sub_list.append(geom.dyn_mask)
-    if get_static:
-        sub_list.append(geom.stat_mask)
-    out: RasterOut = rasterize(
-        geom.means, geom.quats, geom.scales, geom.opacity, colors,
-        cam.w2c, cam.K, width, height, background=bg,
-        pass_masks=torch.stack(masks),
-        alpha_masks=torch.stack(sub_masks) if sub_masks else None,
-        means2d_offset=means2d_offset,
-        want_depth=want_depth, want_alpha=want_alpha,
-        splats=splats, shared=shared, config=config,
-        segments=(stat.capacity, dyn.capacity))
-
-    rays = cam_rays(cam, width, height)
-    image = apply_sandwich(sandwich, out.images[0, ..., :9], rays)
-    i = 1
-    j = 0
-    d_image = d_depth = d_alpha = s_image = s_alpha = None
-    if get_dynamic:
-        if subset_alpha_only:
-            d_alpha = out.sub_alphas[j]
-            j += 1
-        else:
-            d_image = apply_sandwich(sandwich, out.images[i, ..., :9], rays)
-            d_depth = out.depths[i]
-            d_alpha = out.alphas[i]
-            i += 1
-    if get_static:
-        if subset_alpha_only:
-            s_alpha = out.sub_alphas[j]
-            j += 1
-        else:
-            s_image = apply_sandwich(sandwich, out.images[i, ..., :9], rays)
-            s_alpha = out.alphas[i]
-            i += 1
-    flow = out.images[0, ..., 9:] if extra_colors is not None else None
-    return RenderOut(image=image, depth=out.depths[0], alpha=out.alphas[0],
-                     d_image=d_image, d_depth=d_depth, d_alpha=d_alpha,
-                     s_image=s_image, s_alpha=s_alpha,
-                     feat=out.images[0, ..., :9],
-                     means2d=out.means2d, radii=out.radii, flow=flow,
-                     tile_max=out.tile_max)
+    """Render one view at one time: :func:`render_views` at ``cam`` with a
+    scalar (or None) ``delta_exposure``, whose outputs have no view axis."""
+    return render_views(stat, dyn, sandwich, cam.w2c, cam.K, cam.time, width, height, bg3,
+                        max_time, delta_exposure, get_static=get_static,
+                        get_dynamic=get_dynamic, extra_colors=extra_colors,
+                        means2d_offset=means2d_offset, subset_alpha_only=subset_alpha_only,
+                        want_depth=want_depth, want_alpha=want_alpha, config=config)
 
 
-def _assemble_views(stat: G.GaussianState, dyn: G.GaussianState, time,
-                    max_time: float, delta_exposure: torch.Tensor | None, V: int):
-    """:func:`assemble`'s fields over a leading axis of V views at one time,
-    view v shifted by ``delta_exposure[v]`` ([V], or None for none): the
-    static half assembled once, the dynamic half at the V times in one
-    broadcast evaluation; each view's rows those of its own call, to the bit.
-    Returns (means, quats, scales, opacity, colors), each [V, N, ...]."""
-    if delta_exposure is None:
-        dyn_rows = assemble_dyn(dyn, time, max_time)
-    else:
-        dyn_rows = assemble_dyn(dyn, time, max_time, delta_exposure.reshape(V, 1, 1))
-
-    def per_view(s, d):  # [V, N, ...]: the static rows, then the view's dynamic
-        d = d if d.ndim > s.ndim else d.expand((V,) + d.shape)
-        return torch.cat([s.expand((V,) + s.shape), d], dim=1)
-
-    return tuple(per_view(s, d) for s, d in zip(assemble_static(stat), dyn_rows))
-
-
-class LatentOut(NamedTuple):
-    images: torch.Tensor    # [V, H, W, 3] decoded RGB, one a camera
-    feat: torch.Tensor      # [V, H, W, 9] raw features (pre-decoder)
-    tile_max: torch.Tensor  # pre-clamp peak tile occupancy over the views
-
-
-@obs.spanned("render")
 def render_latents(stat: G.GaussianState, dyn: G.GaussianState,
                    sandwich: SandwichParams, w2c: torch.Tensor, K: torch.Tensor,
                    time, width: int, height: int, max_time: float = 1.0,
                    delta_exposure: torch.Tensor | None = None,
-                   config: RasterConfig = RasterConfig()) -> LatentOut:
-    """V image-only renders at one time in one pass: camera v at ``w2c[v]``
-    and exposure shift ``delta_exposure[v]`` ([V], or None for none), with
-    no background, depth or weight columns. Each view's features are those
-    of ``render_view(..., Camera(w2c[v], K, time), ..., delta_exposure[v],
-    want_depth=False, want_alpha=False)`` to the bit, from the same float
-    operations: the static half assembled once and the dynamic half at the
-    V times over a leading view axis; projection over it
-    (``ops/projection.py``); each view binned on its own
-    (``ops/tiles.py::bin_views``); one composite launch over the V views'
-    tiles (``ops/cuda_raster.py``). One decode with each camera's rays
-    follows; its [V·H·W, 12] @ [12, 6] product may take another cuBLAS
-    kernel than one view's, and round some values in their last place (on
-    the CPU it gives the calls' bits).
+                   config: RasterConfig = RasterConfig()) -> RenderOut:
+    """The train step's V latent renders of a view: :func:`render_views` at
+    the cameras ``w2c`` [V, 4, 4] with the exposure shifts
+    ``delta_exposure`` ([V], or None for none), image only (no background,
+    depth or weight columns).
 
     Counters (while counting is on): ``render.latent_calls`` one a call,
     ``render.latent_views`` its V."""
-    V = w2c.shape[0]
     if obs.COUNTING:
         obs.count("render.latent_calls", host_int=1)
-        obs.count("render.latent_views", host_int=V)
-    means, quats, scales, opac, colors = _assemble_views(stat, dyn, time, max_time,
-                                                         delta_exposure, V)
-    splats = projection.project(means, quats, scales, w2c, K, width, height,
-                                eps2d=config.eps2d, near=config.near,
-                                sigma_cut=config.sigma_cut)
-    bins = tiles.bin_views(projection.ProjectedSplats(*(x.detach() for x in splats)),
-                           width, height, tiles_per_gauss=config.tiles_per_gauss,
-                           max_per_tile=config.max_per_tile)
-    feat = cuda_raster.composite_tiles(bins, splats, colors, opac, width, height,
-                                       want_depth=False, want_alpha=False,
-                                       backend=config.backend)[0]
-    rays = cam_rays(Camera(w2c=w2c, K=K, time=time), width, height)
-    return LatentOut(images=apply_sandwich(sandwich, feat, rays), feat=feat,
-                     tile_max=bins.max_count)
+        obs.count("render.latent_views", host_int=w2c.shape[0])
+    return render_views(stat, dyn, sandwich, w2c, K, time, width, height, None, max_time,
+                        delta_exposure, want_depth=False, want_alpha=False, config=config)
 
 
-class FlowPassOut(NamedTuple):
-    images: torch.Tensor    # [V, H, W, 3] decoded RGB, one a pass
-    d_alphas: torch.Tensor  # [V, H, W] dynamic-subset alpha
-    flows: torch.Tensor     # [V, H, W, 2] composited exp→mid flow columns
-    means2d: torch.Tensor   # [V, N, 2] each pass's projected centres
-    tile_max: torch.Tensor  # pre-clamp peak tile occupancy over the passes
-
-
-@obs.spanned("render")
 def render_flow_passes(stat: G.GaussianState, dyn: G.GaussianState,
                        sandwich: SandwichParams, cam: Camera, width: int, height: int,
                        mid2d: torch.Tensor, max_time: float, shifts: torch.Tensor,
-                       config: RasterConfig = RasterConfig()) -> FlowPassOut:
-    """The train step's V exposure-flow passes of a view in one pass: all
-    at the view's camera ``cam``, pass v at the exposure-time shift
-    ``shifts[v]`` ([V]), composited with its exp→mid flow ``(mid2d −
-    means2d_v).detach()`` ([N, 2] colours, ``mid2d`` the mid-time
-    projection) as two extra columns and the dynamic-alpha chain, with no
-    background, depth or weight columns (CE = 9 + 2 with the sub chain).
-    Each pass's outputs are those of ``assemble_project(stat, dyn, cam, ...,
-    shifts[v])`` and ``render_view(..., get_dynamic=True, extra_colors=flow,
-    subset_alpha_only=True, want_depth=False, want_alpha=False,
-    precomputed=...)`` to the bit, from the same float operations: the
-    assembly as :func:`render_latents`' over a leading pass axis, one
-    projection over it at the one camera (``ops/projection.py``, the products
-    with its rotation per pass), each pass binned on its own
-    (``ops/tiles.py::bin_views``), one composite launch over all their tiles
-    (``ops/cuda_raster.py``), one decode with the camera's rays, which on the
-    card may round some values in their last place as :func:`render_latents`'
-    does.
+                       config: RasterConfig = RasterConfig()) -> RenderOut:
+    """The train step's V exposure-flow passes of a view: :func:`render_views`
+    at the view's camera ``cam`` with the exposure-time shifts ``shifts``
+    ([V]), each pass composited with its exp→mid flow ``(mid2d −
+    means2d_v).detach()`` (``mid2d`` [N, 2] the mid-time projection) as two
+    extra columns and the dynamic-alpha chain, with no background, depth
+    or weight columns (CE = 9 + 2 with the sub chain).
 
     Counters (while counting is on): ``render.flow_calls`` one a call,
     ``render.flow_views`` its V."""
-    V = shifts.shape[0]
     if obs.COUNTING:
         obs.count("render.flow_calls", host_int=1)
-        obs.count("render.flow_views", host_int=V)
-    means, quats, scales, opac, colors = _assemble_views(stat, dyn, cam.time, max_time,
-                                                         shifts, V)
-    splats = projection.project(means, quats, scales, cam.w2c.expand(V, 4, 4), cam.K,
-                                width, height, eps2d=config.eps2d, near=config.near,
-                                sigma_cut=config.sigma_cut)
-    bins = tiles.bin_views(projection.ProjectedSplats(*(x.detach() for x in splats)),
-                           width, height, tiles_per_gauss=config.tiles_per_gauss,
-                           max_per_tile=config.max_per_tile)
-    flow2d = (mid2d - splats.means2d).detach()
-    dyn_mask = torch.cat([torch.zeros(stat.capacity, dtype=torch.float32, device=opac.device),
-                          torch.ones(dyn.capacity, dtype=torch.float32, device=opac.device)])
-    feat, _, _, d_alphas = cuda_raster.composite_tiles(
-        bins, splats, torch.cat([colors, flow2d], dim=-1), opac, width, height,
-        sub_opacities=opac * dyn_mask, want_depth=False, want_alpha=False,
-        backend=config.backend)
-    images = apply_sandwich(sandwich, feat[..., :9], cam_rays(cam, width, height))
-    return FlowPassOut(images=images, d_alphas=d_alphas, flows=feat[..., 9:],
-                       means2d=splats.means2d, tile_max=bins.max_count)
-
-
-@obs.spanned("render")
-def assemble_project(stat: G.GaussianState, dyn: G.GaussianState,
-                     cam: Camera, width: int, height: int,
-                     max_time: float = 1.0, delta_exposure=None,
-                     config: RasterConfig = RasterConfig()):
-    """Assemble the combined set at (exposure-shifted) time and project it;
-    returns (SceneGeom, ProjectedSplats) for ``render_view(precomputed=)``."""
-    geom = assemble(stat, dyn, cam.time, max_time, delta_exposure)
-    splats = projection.project(geom.means, geom.quats, geom.scales,
-                                cam.w2c, cam.K, width, height,
-                                eps2d=config.eps2d, near=config.near,
-                                sigma_cut=config.sigma_cut)
-    return geom, splats
+        obs.count("render.flow_views", host_int=shifts.shape[0])
+    return render_views(stat, dyn, sandwich, cam.w2c, cam.K, cam.time, width, height, None,
+                        max_time, shifts, get_dynamic=True, flow_to=mid2d,
+                        subset_alpha_only=True, want_depth=False, want_alpha=False,
+                        config=config)
 
 
 @obs.spanned("render")
@@ -396,9 +333,10 @@ def project_combined(stat: G.GaussianState, dyn: G.GaussianState,
                      max_time: float = 1.0, delta_exposure=None,
                      config: RasterConfig = RasterConfig()) -> torch.Tensor:
     """2D projections of the combined set at a time (flow colours)."""
-    _, splats = assemble_project(stat, dyn, cam, width, height, max_time,
-                                 delta_exposure, config)
-    return splats.means2d
+    geom = assemble(stat, dyn, cam.time, max_time, delta_exposure)
+    return projection.project(geom.means, geom.quats, geom.scales, cam.w2c, cam.K,
+                              width, height, eps2d=config.eps2d, near=config.near,
+                              sigma_cut=config.sigma_cut).means2d
 
 
 def get_flow(stat: G.GaussianState, dyn: G.GaussianState,

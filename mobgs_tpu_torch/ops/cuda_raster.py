@@ -66,7 +66,6 @@ import torch
 
 from mobgs_tpu_torch.ops.projection import ProjectedSplats
 from mobgs_tpu_torch.ops.tiles import TILE, TileBins
-from mobgs_tpu_torch.parallel import mesh as Mx
 
 P = TILE * TILE  # 256 pixels per tile
 CH = 64          # minimum chunk unit; max_per_tile must divide by this
@@ -693,56 +692,35 @@ def _untile(x: torch.Tensor, ntx: int, nty: int, width: int, height: int,
     return x.reshape(views + (nty * TILE, ntx * TILE, C))[..., :height, :width, :]
 
 
-def composite_tiles(bins: TileBins, splats: ProjectedSplats,
-                    colors: torch.Tensor, opacities: torch.Tensor,
-                    width: int, height: int,
-                    background: torch.Tensor | None = None,
-                    sub_opacities: torch.Tensor | None = None,
-                    want_depth: bool = True, want_alpha: bool = True,
-                    backend: str = "auto"):
-    """Counterpart of ``composite_tiles_pallas`` (``pallas_raster.py:571-679``).
+def composite_rows(bins: TileBins, splats: ProjectedSplats,
+                   colors: torch.Tensor, opacities: torch.Tensor,
+                   sub_opacities: torch.Tensor | None = None,
+                   want_depth: bool = True, want_alpha: bool = True,
+                   backend: str = "auto", tile0: int = 0):
+    """The composite's launch, before the epilogue: the operands packed
+    from ``splats``, ``colors`` (with the depth and weight columns of
+    ``want_depth`` / ``want_alpha``), ``opacities`` and ``sub_opacities``,
+    and one launch per column group over the tile rows ``bins`` holds.
 
-    ``sub_opacities`` [N] runs the fused second transmittance chain; its
-    alpha map comes back as a fourth output. ``want_depth`` /
-    ``want_alpha`` drop the extended depth / weight columns (depth needs
-    the weight column, and so does a background). ``backend`` is
-    ``"auto"`` (the wrapper: kernel for CUDA tensors, plain version for
-    CPU tensors), ``"cuda"`` (the kernel; raises for CPU tensors) or
-    ``"plain"``.
+    The rows of a launch are its views' tiles in turn, ``ntx·nty`` a view
+    (``ops/tiles.py::bin_views``); ``bins`` may hold a contiguous range of
+    them, the first at row ``tile0``, and the kernels place each row's
+    pixels by its row modulo the view's tile count. The outputs of ranges
+    that cover the launch, concatenated, are the whole launch's: each
+    tile's arithmetic is its own. ``splats``, ``colors``, ``opacities``
+    (and ``sub_opacities``) carry a leading view axis [V, N, ...] where
+    the launch has several views, each view's ids pointing at its rows of
+    the flattened [V·N] records. ``backend`` as in :func:`composite_tiles`.
 
-    On gauss-sharded rows with tile sharding on
-    (``parallel/mesh.py::enable_tile_sharding``) and the tile count
-    divisible by the gauss axis, each gauss rank composites its range of
-    the tiles and the ranges are all-gathered before the epilogue; rows
-    replicated on every rank composite every tile.
-
-    Epilogue (``pallas_raster.py:657-679``): untile, clamp alpha with
-    ``min(α, 1)``, blend the background as ``bg·(1−α)``, divide depth by
-    ``max(α, 1e-10)``.
-
-    Several views of one size composite in one launch per column group:
-    ``splats``, ``colors``, ``opacities`` (and ``sub_opacities``) then carry
-    a leading view axis [V, N, ...], and ``bins`` holds the views' tiles in
-    turn, each view's ids pointing at its rows of the flattened [V·N]
-    records (``ops/tiles.py::bin_views``); the outputs carry the view axis
-    too. Not on gauss-sharded rows.
-
-    Returns image [H, W, C], alpha [H, W], expected depth [H, W]
-    (+ subset alpha [H, W] with ``sub_opacities``).
+    Returns (out [T, P, CE], out2 [T, P] with ``sub_opacities``, else
+    None) for the T rows of ``bins``.
     """
-    if want_depth and not want_alpha:
-        raise ValueError("depth needs the weight column")
-    if background is not None and not want_alpha:
-        raise ValueError("background blending needs alpha")
     if backend not in ("auto", "cuda", "plain"):
         raise ValueError(f"unknown backend {backend!r}")
     if backend == "cuda" and colors.device.type != "cuda":
         raise ValueError(f"backend='cuda' needs CUDA tensors, got {colors.device}")
-    ntx, nty = int(bins.n_tiles_x), int(bins.n_tiles_y)
     views = tuple(colors.shape[:-2])
-    N, C = colors.shape[-2:]
-    has_sub = sub_opacities is not None
-
+    N = colors.shape[-2]
     ext = [colors.to(torch.float32)]
     if want_depth:
         ext.append(splats.depths[..., None].to(torch.float32))
@@ -752,28 +730,61 @@ def composite_tiles(bins: TileBins, splats: ProjectedSplats,
     rec = pack_records(splats, opacities, sub_opacities)
     if views:
         col, rec = col.reshape(-1, col.shape[-1]), rec.reshape(-1, R)
-    col = col.contiguous()
-    ids = bins.gauss_ids.to(torch.int32).contiguous()
-    counts = bins.counts.to(torch.int32).contiguous()
-
     fn = composite_plain if backend == "plain" else composite_fwd
-    # the tile-axis shard (pallas_raster.py:631-656), for rows gathered from
-    # the gauss ranks: this rank composites its contiguous tile range with
-    # the kernels' tile0, and the ranges' tiles are all-gathered. The
-    # per-splat gradients of a range are partial; the backward of the
-    # gather that brought the splats sums them over gauss
-    # (parallel/mesh.py::gather_gauss_rows).
-    shard = Mx.tile_shard_info(ntx * nty) if Mx.gauss_shard_info() else None
-    if shard is None:
-        out, out2 = fn(ids, counts, rec, col, ntx, sub=has_sub, tpv=ntx * nty)
-    else:
-        mesh, axis, S = shard
-        tile0 = mesh.get_local_rank(axis) * (ntx * nty // S)
-        out, out2 = fn(Mx.constrain_tile_axis(ids, 0).contiguous(),
-                       Mx.constrain_tile_axis(counts, 0).contiguous(), rec, col, ntx,
-                       sub=has_sub, tile0=tile0)
-        out = Mx.gather_tile_axis(out, 0)
-        out2 = Mx.gather_tile_axis(out2, 0) if has_sub else None
+    return fn(bins.gauss_ids.to(torch.int32).contiguous(),
+              bins.counts.to(torch.int32).contiguous(), rec, col.contiguous(),
+              int(bins.n_tiles_x), sub=sub_opacities is not None, tile0=tile0,
+              tpv=int(bins.n_tiles_x) * int(bins.n_tiles_y))
+
+
+def composite_tiles(bins: TileBins, splats: ProjectedSplats,
+                    colors: torch.Tensor, opacities: torch.Tensor,
+                    width: int, height: int,
+                    background: torch.Tensor | None = None,
+                    sub_opacities: torch.Tensor | None = None,
+                    want_depth: bool = True, want_alpha: bool = True,
+                    backend: str = "auto", tile0: int = 0, gather=None):
+    """Counterpart of ``composite_tiles_pallas`` (``pallas_raster.py:571-679``):
+    :func:`composite_rows`, then the epilogue.
+
+    ``sub_opacities`` [N] runs the fused second transmittance chain; its
+    alpha map comes back as a fourth output. ``want_depth`` /
+    ``want_alpha`` drop the extended depth / weight columns (depth needs
+    the weight column, and so does a background). ``backend`` is
+    ``"auto"`` (the wrapper: kernel for CUDA tensors, plain version for
+    CPU tensors), ``"cuda"`` (the kernel; raises for CPU tensors) or
+    ``"plain"``.
+
+    Several views of one size composite in one launch per column group:
+    ``splats``, ``colors``, ``opacities`` (and ``sub_opacities``) then carry
+    a leading view axis [V, N, ...], and ``bins`` holds the views' tiles in
+    turn (:func:`composite_rows`); the outputs carry the view axis too.
+
+    A share of the launch (the tile-axis shard, ``pallas_raster.py:631-656``):
+    ``bins`` holds the rows from ``tile0`` on, and ``gather`` maps their
+    outputs, each [rows, P, ...], to all the launch's rows before the
+    epilogue (the caller's all-gather of the ranges).
+
+    Epilogue (``pallas_raster.py:657-679``): untile, clamp alpha with
+    ``min(α, 1)``, blend the background as ``bg·(1−α)``, divide depth by
+    ``max(α, 1e-10)``.
+
+    Returns image [H, W, C], alpha [H, W], expected depth [H, W]
+    (+ subset alpha [H, W] with ``sub_opacities``).
+    """
+    if want_depth and not want_alpha:
+        raise ValueError("depth needs the weight column")
+    if background is not None and not want_alpha:
+        raise ValueError("background blending needs alpha")
+    ntx, nty = int(bins.n_tiles_x), int(bins.n_tiles_y)
+    views = tuple(colors.shape[:-2])
+    C = colors.shape[-1]
+    has_sub = sub_opacities is not None
+    out, out2 = composite_rows(bins, splats, colors, opacities, sub_opacities, want_depth,
+                               want_alpha, backend, tile0)
+    if gather is not None:
+        out = gather(out)
+        out2 = gather(out2) if has_sub else None
 
     full = _untile(out, ntx, nty, width, height, views)
     image = full[..., :C]

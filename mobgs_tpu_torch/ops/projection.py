@@ -20,7 +20,6 @@ from typing import NamedTuple
 import torch
 
 from mobgs_tpu_torch.core import se3
-from mobgs_tpu_torch.parallel import mesh as Mx
 
 
 class ProjectedSplats(NamedTuple):
@@ -62,12 +61,7 @@ def project(means: torch.Tensor, quats: torch.Tensor, scales: torch.Tensor,
     camera's rotation, taken per view as one call takes them. A batched
     product rounds by another kernel, and its backward, a [3, N] @ [N, 3]
     reduction a view, runs on one block a view.
-
-    On gauss-sharded rows (``parallel/mesh.py::gauss_sharded``) ``means``,
-    ``quats`` and ``scales`` are this rank's rows; the camera's gradient
-    from them is then summed over the ``gauss`` ranks.
     """
-    viewmat = Mx.replicated_into_rows(viewmat)
     dt = means.dtype
     Rcw = viewmat[..., :3, :3]
     tcw = viewmat[..., :3, 3]

@@ -19,14 +19,9 @@ float operations, and ``torch.sort(stable=True)`` orders ties as the
 stable ``jax.lax.sort`` does. The binning is integer data; callers pass
 detached splats.
 
-``bin_static`` and ``merge_dyn_bins`` are the camera-shared static binning:
-the static pool binned once per view, the dynamic records merged into it
-per pass, with the result of ``bin_gaussians`` over the concatenation.
-
 Counters (``utils/observability.py``, while counting is on), once per
-binning: ``bin.candidates`` the entries sorted (N x ``tiles_per_gauss``;
-on the shared route the static ones in ``bin_static``, the dynamic ones
-in ``merge_dyn_bins``), ``bin.valid`` the pre-clamp entries, ``bin.kept``
+binning of a view: ``bin.candidates`` the entries sorted (N x
+``tiles_per_gauss``), ``bin.valid`` the pre-clamp entries, ``bin.kept``
 those under ``max_per_tile`` and ``bin.tiles_cut`` the tiles above it.
 """
 
@@ -76,10 +71,12 @@ def bin_views(splats: ProjectedSplats, width: int, height: int,
     all of them: ``splats`` carry a leading view axis [V, N, ...]; the result
     holds the views' tiles in turn ([V·T, K] ids, [V·T] counts), view v's ids
     offset by v·N into the flattened records, and the peak occupancy over
-    the views."""
+    the views. One view is :func:`bin_gaussians`' result as it stands."""
     V, N = splats.means2d.shape[:2]
     per = [bin_gaussians(ProjectedSplats(*(x[v] for x in splats)), width, height,
                          tiles_per_gauss, max_per_tile) for v in range(V)]
+    if V == 1:
+        return per[0]
     ids = torch.stack([b.gauss_ids for b in per])
     offset = torch.arange(V, dtype=ids.dtype, device=ids.device) * N
     return TileBins(gauss_ids=(ids + offset[:, None, None]).reshape(-1, ids.shape[-1]),
@@ -167,88 +164,6 @@ def _expand_sort(splats: ProjectedSplats, width: int, height: int,
     starts = bounds[:-1]
     counts = (bounds[1:] - starts).to(i32)
     return keys_sorted, gidx_sorted, starts, counts, n_tiles_x, n_tiles_y
-
-
-class StaticBins(NamedTuple):
-    """Reusable per-camera binning of a time-invariant Gaussian subset.
-
-    The train step renders the mid pass and the E-1 exposure-flow passes of
-    a view from the same camera, and only the dynamic pool moves with the
-    exposure shift: the static pool's projection, expansion, sort and
-    per-tile lists are the same in all of them. Binning the static set once
-    per view and merging the dynamic records per pass skips the static
-    share of each pass's expand-sort; it pays only when the dynamic pool is
-    a small fraction of the static one, so ``train/step.py`` keeps it off
-    by default, as the JAX package does.
-    """
-    ids: torch.Tensor         # [T, K] int32 indices into the static set
-    keys: torch.Tensor        # [T, K] fused sort keys (INT32_MAX pad)
-    counts_raw: torch.Tensor  # [T] int32 PRE-clamp entries per tile
-    n_tiles_x: int
-    n_tiles_y: int
-
-
-def _key_panel(keys_sorted, starts, counts, n_tiles: int, K: int):
-    """Each tile's K front-most sort keys, INT32_MAX past its own count, so
-    that the padding sorts behind every real record in a merge."""
-    keys = _tile_slices(keys_sorted, starts, n_tiles, K)
-    slot = torch.arange(K, dtype=torch.int32, device=keys.device)[None, :]
-    return torch.where(slot < counts[:, None], keys,
-                       torch.full_like(keys, INT32_MAX))
-
-
-def bin_static(splats: ProjectedSplats, width: int, height: int,
-               tiles_per_gauss: int = 36,
-               max_per_tile: int = 1024) -> StaticBins:
-    """Bin a time-invariant subset once (``tiles.py:164-179``), keeping the
-    sorted key panel that ``merge_dyn_bins`` merges dynamic records into."""
-    keys_sorted, gidx_sorted, starts, counts, ntx, nty = _expand_sort(
-        splats, width, height, tiles_per_gauss)
-    ids = _tile_slices(gidx_sorted, starts, ntx * nty, max_per_tile)
-    keys = _key_panel(keys_sorted, starts, counts, ntx * nty, max_per_tile)
-    if obs.COUNTING:
-        obs.count("bin.candidates",
-                  host_int=splats.means2d.shape[0] * tiles_per_gauss)
-    return StaticBins(ids=ids, keys=keys, counts_raw=counts,
-                      n_tiles_x=ntx, n_tiles_y=nty)
-
-
-def merge_dyn_bins(static: StaticBins, dyn_splats: ProjectedSplats,
-                   id_offset: int, width: int, height: int,
-                   tiles_per_gauss: int = 36,
-                   max_per_tile: int = 1024) -> TileBins:
-    """Merge a dynamic set's records into a precomputed static binning
-    (``tiles.py:182-215``): the same ``TileBins`` as ``bin_gaussians`` over
-    the concatenated set with the dynamic indices offset by ``id_offset``
-    (ids within each tile's count, counts and ``max_count``).
-
-    Each stream is depth-sorted and truncated to its front-most K on its
-    own, so the K front-most of the two-stream merge are the K front-most
-    of the combined sort. Ties keep the combined sort's order (static
-    before dynamic, index order within each): the static panel comes first
-    and the row sort is stable.
-    """
-    T, K = static.ids.shape
-    keys_sorted, gidx_sorted, starts, counts_d, _, _ = _expand_sort(
-        dyn_splats, width, height, tiles_per_gauss)
-    ids_d = _tile_slices(gidx_sorted, starts, T, max_per_tile) + id_offset
-    keys_d = _key_panel(keys_sorted, starts, counts_d, T, max_per_tile)
-
-    # a stable row sort of the [T, 2K] key panel, then the front-most K
-    keys_cat = torch.cat([static.keys, keys_d], dim=1)
-    ids_cat = torch.cat([static.ids, ids_d], dim=1)
-    _, order = torch.sort(keys_cat, dim=1, stable=True)
-    merged = torch.gather(ids_cat, 1, order[:, :K])
-
-    counts_raw = static.counts_raw + counts_d  # the same entry set
-    kept = torch.clamp(counts_raw, max=K)
-    if obs.COUNTING:
-        obs.count("bin.candidates",
-                  host_int=dyn_splats.means2d.shape[0] * tiles_per_gauss)
-        _count_kept(counts_raw, kept, K)
-    return TileBins(gauss_ids=merged, counts=kept,
-                    n_tiles_x=static.n_tiles_x, n_tiles_y=static.n_tiles_y,
-                    max_count=torch.max(counts_raw))
 
 
 def suggest_tiles_per_gauss(radii, quantile: float = 0.995,

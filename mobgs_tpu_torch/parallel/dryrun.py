@@ -16,13 +16,13 @@ takes its shard, then runs 3 steps, a densify round on the gathered
 dynamic pool (``grad_threshold=1e-8``, the same split key on every rank,
 then re-sharded), one more step and a checkpoint round trip (rank 0 writes
 the gathered state; every rank loads it and must find its state bit for
-bit). It checks that each gauss rank composited exactly its contiguous
-tile range, renders the JAX scale-out tests' clouds on gauss-sharded rows
-(a 256x128 view of 1024 Gaussians; one 64x48 scene per data rank) against
-the rank's render of the whole cloud, and prints rank 0's summary (with
-the kernels' launches in the steps, summed over the ranks) as one JSON
-line. With ``--out``,
-rank 0 writes there the whole state before the first step and after each
+bit). It checks that in each launch of V views each gauss rank
+composited exactly its contiguous V·T / n_gauss of the V·T tile rows,
+renders the JAX scale-out tests' clouds on gauss-sharded rows (a 256x128
+view of 1024 Gaussians; one 64x48 scene per data rank) against the rank's
+render of the whole cloud, and prints rank 0's summary (with the kernels'
+launches in the steps, summed over the ranks) as one JSON line. With
+``--out``, rank 0 writes there the whole state before the first step and after each
 step (``train_state_<k>.npz``, the port's checkpoint format) and
 ``summary.json``.
 """
@@ -183,13 +183,13 @@ def _rank_main(rank: int, n: int, port: int, device: str, out_dir: str | None):
             ckpt.save_train_state(os.path.join(out_dir, "train_state_0.npz"), whole)
         ts = Mx.shard_train_state(whole, mesh)
 
-        # each composite's tile range: (tile0, tiles) of every launch
+        # each composite's tile range: (tile0, rows, tiles a view) of every launch
         ranges = []
         real = cuda_raster.composite_fwd, cuda_raster.composite_plain
 
         def recording(fn):
             def wrapped(ids, counts, rec, col, ntx, sub=False, tile0=0, tpv=None):
-                ranges.append((tile0, ids.shape[0]))
+                ranges.append((tile0, ids.shape[0], tpv))
                 return fn(ids, counts, rec, col, ntx, sub, tile0, tpv)
             return wrapped
 
@@ -258,19 +258,27 @@ def _rank_main(rank: int, n: int, port: int, device: str, out_dir: str | None):
         if out_dir is not None and r == 0:
             np.savez(os.path.join(out_dir, f"renders_rank{rank}.npz"), **renders)
 
-        # every composite of this rank covered exactly its contiguous range
+        # every launch of V views covered exactly this rank's contiguous
+        # V·T / n_gauss of its V·T tile rows
         T = (W // 16) * (H // 16)
         per = T // n_gauss
-        want = (r * per, per)
-        if not ranges or any(x != want for x in ranges):
-            raise RuntimeError(f"rank {rank}: tile ranges {sorted(set(ranges))}, "
-                               f"expected {want}")
+        launches_by_views = {}
+        for tile0, rows, tpv in ranges:
+            views = rows // per
+            if tpv != T or rows != views * per or tile0 != r * views * per:
+                raise RuntimeError(f"rank {rank}: tile range {(tile0, rows)} of a launch of "
+                                   f"{tpv} tiles a view, expected ({r} * V * {per}, V * {per})")
+            launches_by_views[views] = (tile0, rows)
+        if not ranges:
+            raise RuntimeError(f"rank {rank}: no composite recorded")
         summary = {"n": n, "mesh": {"data": n_data, "gauss": n_gauss}, "backend": backend,
                    "device": str(dev), "losses": losses, "psnr": float(m.psnr),
                    "dyn_live": n_live, "densify_dropped": n_drop,
                    "checkpoint_roundtrip": "bit-equal",
                    "launches": dict(zip(names, launched.tolist())),
-                   "tile_ranges": {"tiles": T, "per_rank": per, "this_rank": list(want),
+                   "tile_ranges": {"tiles": T, "per_view_per_rank": per,
+                                   "this_rank": {str(v): list(x) for v, x
+                                                 in sorted(launches_by_views.items())},
                                    "composites": len(ranges)}}
         if writer:
             with open(os.path.join(out_dir, "summary.json"), "w") as f:

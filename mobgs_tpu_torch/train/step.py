@@ -25,11 +25,11 @@ reaches it through the composite.
 Then the gradients of every Gaussian field, the Sandwich weights, the BLCE
 parameters (global-norm clipped to 1) and the offsets; densify statistics
 from the offsets' gradient scaled by (W/2, H/2); and Adam on each group.
-The views are a Python loop; a view's E-1 latent renders are one batched
-pass (``models/render.py::render_latents``), and so are its E-1
-exposure-flow passes (``render_flow_passes``). On gauss-sharded rows each
-latent render and each flow pass is one ``render_view`` call; on the shared
-static pool each flow pass is. The compositing runs through the
+The views are a Python loop; a view's renders are calls of the one render
+pipeline (``models/render.py::render_views``), whatever the mesh: its E-1
+latent renders in one (``render_latents``), its E-1 exposure-flow passes in
+one (``render_flow_passes``) and the mid render (``render_view``). The
+compositing runs through the
 hand-written kernels for CUDA tensors (per step at B=2, E=9: 2 + 2 forward
 and 2 + 2 backward launches flow off, 2 + 2 + 2 and 2 + 2 + 2 flow on), and
 so does the flow-warp loss (``ops/cuda_warp.py``: a view's 2E warps in one
@@ -123,8 +123,7 @@ def init_train_state(stat: G.GaussianState, dyn: G.GaussianState,
 def make_forward(opt_cfg, width: int, height: int, max_time: float,
                  num_warp: int = 9, raster_cfg: RasterConfig = RasterConfig(),
                  use_blce: bool = True, with_latents: bool = True,
-                 with_exposure_delta: bool = True,
-                 shared_static: bool = False):
+                 with_exposure_delta: bool = True):
     """The differentiated core of the step (``step.py:124-380``):
     ``forward(stat, dyn, sandwich, blce, offsets, batch)`` returns (total
     loss, aux).
@@ -137,13 +136,6 @@ def make_forward(opt_cfg, width: int, height: int, max_time: float,
       with_exposure_delta: False before ``start_warp_dynamic``: latent
         renders keep the warped poses but no exposure time shift (the flow
         passes keep their fixed shifts either way).
-      shared_static: with flow on, project and bin the static pool once per
-        view (``models/render.py::make_shared_view``) and reuse it in the
-        mid render and every exposure-flow pass, which then project and
-        merge only the dynamic rows; the flow colours' static rows are exact
-        zeros (static means never move). The same losses and gradients as
-        the unshared path. Off by default, as in the JAX package: it pays
-        only where the dynamic pool is a small fraction of the static one.
     """
     E = num_warp
     half = E // 2
@@ -158,24 +150,13 @@ def make_forward(opt_cfg, width: int, height: int, max_time: float,
         dev = stat.xyz.device
         bg3 = torch.zeros(3, dtype=torch.float32, device=dev)
         preds, depths, d_alphas, radii, tile_maxes, flow_ls = [], [], [], [], [], []
-        # a view's exposure-flow passes in one batched pass, except on the
-        # shared static pool or on gauss-sharded rows
-        batched_flow = compute_flow and not shared_static and Mx.gauss_shard_info() is None
-        if batched_flow:
+        if compute_flow:
             shifts = torch.tensor([ratios[e] for e in others], dtype=torch.float32,
                                   device=dev)
         for b in range(batch.view_idx.shape[0]):
             w2c, K, time = batch.w2c[b], batch.K[b], batch.time[b]
             cam = Camera(w2c=w2c, K=K, time=time)
-            lat_imgs, f_imgs, f_alphas, f_e2m, flow2d_o = [], [], [], [], []
-            shared = None
-            if compute_flow and shared_static:
-                # the static pool: one projection and binning for this
-                # camera, reused by the mid render and every flow pass
-                shared = R.make_shared_view(stat, cam, width, height, raster_cfg)
-                mid_dyn2d = R.project_dyn2d(dyn, cam, width, height, max_time,
-                                            None, raster_cfg).detach()
-            elif compute_flow:
+            if compute_flow:
                 mid2d = R.project_combined(stat, dyn, cam, width, height,
                                            max_time, None, raster_cfg).detach()
             if with_latents:
@@ -188,74 +169,31 @@ def make_forward(opt_cfg, width: int, height: int, max_time: float,
                     lat_w2c = w2c.expand(E, 4, 4)
                     expo = torch.zeros(E, dtype=torch.float32, device=dev)
                 # the latent renders, image only (train.py:502-541): the E-1
-                # cameras in one batched pass; on gauss-sharded rows one
-                # render_view each
-                if Mx.gauss_shard_info() is None:
-                    lat = R.render_latents(
-                        stat, dyn, sandwich, torch.cat([lat_w2c[:half], lat_w2c[half + 1:]]),
-                        K, time, width, height, max_time,
-                        torch.cat([expo[:half], expo[half + 1:]]) if with_exposure_delta
-                        else None, config=raster_cfg)
-                    lat_imgs = lat.images
-                    tile_maxes.append(lat.tile_max)
-                else:
-                    for e in others:
-                        lat = R.render_view(
-                            stat, dyn, sandwich, Camera(w2c=lat_w2c[e], K=K, time=time),
-                            width, height, bg3, max_time,
-                            expo[e] if with_exposure_delta else None,
-                            want_depth=False, want_alpha=False, config=raster_cfg)
-                        lat_imgs.append(lat.image)
-                        tile_maxes.append(torch.as_tensor(lat.tile_max))
-                    lat_imgs = torch.stack(lat_imgs)
-                if batched_flow:
-                    # the exposure-flow passes at the view's own camera and the
-                    # exposure-time geometry (train.py:564-584), the E-1 shifts
-                    # in one batched pass: image, exp→mid flow columns and the
-                    # dynamic alpha
-                    fl = R.render_flow_passes(stat, dyn, sandwich, cam, width, height,
-                                              mid2d, max_time, shifts, raster_cfg)
-                    tile_maxes.append(fl.tile_max)
-                    f_imgs, f_alphas, f_e2m = list(fl.images), list(fl.d_alphas), list(fl.flows)
-                    flow2d_o = list((mid2d - fl.means2d).detach())
-                for e in others if compute_flow and not batched_flow else ():
-                    # one exposure-flow pass a shift: on the shared static pool,
-                    # or on gauss-sharded rows
-                    if shared_static:
-                        # only the dynamic rows differ from the shared panel
-                        dyn2d_e = R.project_dyn2d(dyn, cam, width, height,
-                                                  max_time, ratios[e],
-                                                  raster_cfg).detach()
-                        flow2d_e = torch.cat([
-                            torch.zeros((stat.capacity, 2), dtype=torch.float32,
-                                        device=dev), mid_dyn2d - dyn2d_e])
-                        fout = R.render_view(
-                            stat, dyn, sandwich, cam, width, height, bg3,
-                            max_time, ratios[e], get_dynamic=True,
-                            extra_colors=flow2d_e, subset_alpha_only=True,
-                            want_depth=False, want_alpha=False, shared=shared,
-                            config=raster_cfg)
-                    else:
-                        geom_f, splats_f = R.assemble_project(
-                            stat, dyn, cam, width, height, max_time, ratios[e],
-                            raster_cfg)
-                        flow2d_e = (mid2d - splats_f.means2d).detach()
-                        fout = R.render_view(
-                            stat, dyn, sandwich, cam, width, height, bg3,
-                            max_time, get_dynamic=True, extra_colors=flow2d_e,
-                            subset_alpha_only=True, want_depth=False,
-                            want_alpha=False, precomputed=(geom_f, splats_f),
-                            config=raster_cfg)
-                    tile_maxes.append(torch.as_tensor(fout.tile_max))
-                    f_imgs.append(fout.image)
-                    f_alphas.append(fout.d_alpha)
-                    f_e2m.append(fout.flow)
-                    flow2d_o.append(flow2d_e)
-
+                # cameras in one call
+                lat = R.render_latents(
+                    stat, dyn, sandwich, torch.cat([lat_w2c[:half], lat_w2c[half + 1:]]),
+                    K, time, width, height, max_time,
+                    torch.cat([expo[:half], expo[half + 1:]]) if with_exposure_delta
+                    else None, config=raster_cfg)
+                tile_maxes.append(lat.tile_max)
+                # keep only the images: the call's zero depth and alpha maps and
+                # its [V, N] projections would otherwise live to the loss
+                lat_image = lat.image
+                del lat
             mid_extra = None
             if compute_flow:
+                # the exposure-flow passes at the view's own camera and the
+                # exposure-time geometry (train.py:564-584), the E-1 shifts
+                # in one call: image, exp→mid flow columns and the dynamic
+                # alpha
+                fl = R.render_flow_passes(stat, dyn, sandwich, cam, width, height,
+                                          mid2d, max_time, shifts, raster_cfg)
+                tile_maxes.append(fl.tile_max)
+                f_imgs, f_alphas, f_e2m = list(fl.image), list(fl.d_alpha), list(fl.flow)
                 # mid→exposure flow colours ride the mid render as 2·E extra
                 # columns, (x, y) per exposure; the mid exposure's are zero
+                flow2d_o = list((mid2d - fl.means2d).detach())
+                del fl  # as the latents' output above
                 flow2d = torch.stack(flow2d_o[:half]
                                      + [torch.zeros_like(flow2d_o[0])]
                                      + flow2d_o[half:])              # [E, N, 2]
@@ -265,11 +203,10 @@ def make_forward(opt_cfg, width: int, height: int, max_time: float,
                                 max_time, None, get_static=False,
                                 get_dynamic=True, means2d_offset=offsets[b],
                                 extra_colors=mid_extra,
-                                subset_alpha_only=True, shared=shared,
-                                config=raster_cfg)
+                                subset_alpha_only=True, config=raster_cfg)
             tile_maxes.append(torch.as_tensor(mid.tile_max))
             if with_latents:
-                preds.append((lat_imgs.sum(0) + mid.image) / E + 1e-10)
+                preds.append((lat_image.sum(0) + mid.image) / E + 1e-10)
             else:
                 preds.append(mid.image)
             depths.append(mid.depth)
@@ -321,8 +258,7 @@ def make_train_step(opt_cfg, width: int, height: int, max_time: float,
                     spatial_lr_scale: float = 5.0, use_blce: bool = True,
                     with_latents: bool = True,
                     with_exposure_delta: bool = True,
-                    with_omega_freeze: bool = False,
-                    shared_static: bool = False, mesh=None):
+                    with_omega_freeze: bool = False, mesh=None):
     """Build the per-iteration update ``train_step(ts, batch) -> (ts,
     Metrics)`` (``step.py:383-474``). It runs on the device the state lives
     on, and reads the state's Parameters from ``ts`` on every call, so a
@@ -349,11 +285,10 @@ def make_train_step(opt_cfg, width: int, height: int, max_time: float,
     with_omega_freeze: densify mode 1 past iteration 8001
     (helper_train.py:191-194): the step takes two more arguments, [M] bool
     masks of the static and the dynamic pool, and applies
-    ``densify.apply_omega_freeze`` to the Gaussian gradients before Adam.
-    shared_static: as in :func:`make_forward`."""
+    ``densify.apply_omega_freeze`` to the Gaussian gradients before Adam."""
     forward = make_forward(opt_cfg, width, height, max_time, num_warp,
                            raster_cfg, use_blce, with_latents,
-                           with_exposure_delta, shared_static)
+                           with_exposure_delta)
     n_data = 1 if mesh is None else mesh.size(0)
 
     def train_step(ts: TrainState, batch: Batch, stat_omega_mask=None,

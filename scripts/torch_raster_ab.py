@@ -251,7 +251,7 @@ def protocol_cases(kernel: str, dev, with_ce29: bool, k_view: int = 0):
     with the forward kernel's outputs and seeded upstream gradients."""
     from mobgs_tpu_torch.data.cameras import Camera
     from mobgs_tpu_torch.models import render as R
-    from mobgs_tpu_torch.ops import cuda_raster, tiles
+    from mobgs_tpu_torch.ops import cuda_raster, projection, tiles
 
     cfg, data, _, stat, dyn = protocol_scene(dev)
     k_mat = np.array(data.K[0], np.float32)
@@ -265,7 +265,9 @@ def protocol_cases(kernel: str, dev, with_ce29: bool, k_view: int = 0):
                  K=torch.as_tensor(k_mat, device=dev),
                  time=torch.tensor(float(data.time[0]), device=dev))
     with torch.no_grad():
-        geom, splats = R.assemble_project(stat, dyn, cam, w, h, data.max_time, config=cfg)
+        geom = R.assemble(stat, dyn, cam.time, data.max_time)
+        splats = projection.project(geom.means, geom.quats, geom.scales, cam.w2c, cam.K, w, h,
+                                    eps2d=cfg.eps2d, near=cfg.near, sigma_cut=cfg.sigma_cut)
         geom = geom._replace(opacity=opac_x * geom.opacity)
         bins = tiles.bin_gaussians(splats, w, h, tiles_per_gauss=cfg.tiles_per_gauss,
                                    max_per_tile=budget)

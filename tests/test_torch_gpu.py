@@ -522,7 +522,8 @@ def _small_train_state(dev, seed=0, num_warp=3):
 @pytest.mark.gpu
 def test_render_latents_on_card_equals_render_view_calls(cuda):
     """The batched latent renders through the kernels: each view's
-    composited features equal to its own ``render_view`` call's to the bit
+    composited features equal to its own one-view call's (``render_view``,
+    the same pipeline) to the bit
     (one composite launch against four), its decoded image within DECODE_ATOL
     (the decoder's [V·H·W, 12] @ [12, 6] product takes another cuBLAS kernel
     than one view's [H·W, 12] @ [12, 6], which rounds some sums in their last
@@ -549,7 +550,7 @@ def test_render_latents_on_card_equals_render_view_calls(cuda):
     torch.cuda.synchronize()
     for v, o in enumerate(one):
         assert torch.equal(bat.feat[v], o.feat), v
-        np.testing.assert_allclose(bat.images[v].detach().cpu().numpy(),
+        np.testing.assert_allclose(bat.image[v].detach().cpu().numpy(),
                                    o.image.detach().cpu().numpy(), rtol=0, atol=DECODE_ATOL)
     assert int(bat.tile_max) == max(int(o.tile_max) for o in one)
 
@@ -567,7 +568,7 @@ def _flow_pass_operands(dev, V=8):
     with torch.no_grad():
         mid2d = R.project_combined(ts.stat, ts.dyn, cam, W, H, 1.0)
         means, quats, scales, opac, colors = R._assemble_views(ts.stat, ts.dyn, cam.time, 1.0,
-                                                               shifts, V)
+                                                               shifts, (V,))
         splats = projection.project(means, quats, scales, cam.w2c.expand(V, 4, 4), cam.K, W, H)
         bins = tiles.bin_views(splats, W, H, max_per_tile=256)
         dyn_mask = torch.cat([torch.zeros(ts.stat.capacity, device=dev),
@@ -621,9 +622,9 @@ def test_flow_pass_launch_on_card(cuda):
 @pytest.mark.gpu
 def test_render_flow_passes_on_card_equals_render_view_calls(cuda):
     """The batched exposure-flow passes through the kernels against one
-    ``assemble_project`` + ``render_view`` call a pass (E=5: four passes):
-    dynamic alphas, flow columns and projected centres to the bit, decoded
-    images within DECODE_ATOL (the decoder's batched product, as
+    one-pass call of the same pipeline a pass (E=5: four passes): dynamic
+    alphas, flow columns and projected centres to the bit, decoded images
+    within DECODE_ATOL (the decoder's batched product, as
     ``render_latents``'), one composite launch against four, the peak
     occupancy the calls' largest, and each leaf's gradient of a weighted sum
     of the three maps within STEP_REL of its largest magnitude."""
@@ -636,35 +637,28 @@ def test_render_flow_passes_on_card_equals_render_view_calls(cuda):
         p.requires_grad_(True)
     cam = Camera(w2c=batch.w2c[1], K=batch.K[1], time=batch.time[1])
     mid2d = R.project_combined(ts.stat, ts.dyn, cam, W, H, 1.0, None, cfg).detach()
-    ratios = [(e - 2) / 2 for e in range(E) if e != 2]
+    shifts = torch.tensor([(e - 2) / 2 for e in range(E) if e != 2], device=cuda)
     rng = np.random.default_rng(5)
     wts = [torch.as_tensor(rng.uniform(size=(E - 1, H, W) + c).astype(np.float32), device=cuda)
            for c in ((3,), (), (2,))]
     before = dict(cuda_raster.launches)
-    bat = R.render_flow_passes(ts.stat, ts.dyn, ts.sandwich, cam, W, H, mid2d, 1.0,
-                               torch.tensor(ratios, device=cuda), cfg)
+    bat = R.render_flow_passes(ts.stat, ts.dyn, ts.sandwich, cam, W, H, mid2d, 1.0, shifts, cfg)
     assert cuda_raster.launches["raster_fwd_sub"] == before["raster_fwd_sub"] + 1
-    one, means2d = [], []
-    for r in ratios:
-        geom, splats = R.assemble_project(ts.stat, ts.dyn, cam, W, H, 1.0, r, cfg)
-        one.append(R.render_view(ts.stat, ts.dyn, ts.sandwich, cam, W, H,
-                                 torch.zeros(3, device=cuda), 1.0, get_dynamic=True,
-                                 extra_colors=(mid2d - splats.means2d).detach(),
-                                 subset_alpha_only=True, want_depth=False, want_alpha=False,
-                                 precomputed=(geom, splats), config=cfg))
-        means2d.append(splats.means2d)
+    one = [R.render_flow_passes(ts.stat, ts.dyn, ts.sandwich, cam, W, H, mid2d, 1.0,
+                                shifts[v:v + 1], cfg) for v in range(E - 1)]
+    assert cuda_raster.launches["raster_fwd_sub"] == before["raster_fwd_sub"] + E
     torch.cuda.synchronize()
     for v, o in enumerate(one):
-        assert torch.equal(bat.d_alphas[v], o.d_alpha), v
-        assert torch.equal(bat.flows[v], o.flow), v
-        assert torch.equal(bat.means2d[v], means2d[v]), v
-        np.testing.assert_allclose(bat.images[v].detach().cpu().numpy(),
-                                   o.image.detach().cpu().numpy(), rtol=0, atol=DECODE_ATOL)
+        assert torch.equal(bat.d_alpha[v], o.d_alpha[0]), v
+        assert torch.equal(bat.flow[v], o.flow[0]), v
+        assert torch.equal(bat.means2d[v], o.means2d[0]), v
+        np.testing.assert_allclose(bat.image[v].detach().cpu().numpy(),
+                                   o.image[0].detach().cpu().numpy(), rtol=0, atol=DECODE_ATOL)
     assert int(bat.tile_max) == max(int(o.tile_max) for o in one)
-    maps = (bat.images, bat.d_alphas, bat.flows)
+    maps = (bat.image, bat.d_alpha, bat.flow)
     g_bat = torch.autograd.grad(sum((x * w).sum() for x, w in zip(maps, wts)), leaves,
                                 allow_unused=True)
-    g_one = torch.autograd.grad(sum((x * w[v]).sum() for v, o in enumerate(one)
+    g_one = torch.autograd.grad(sum((x[0] * w[v]).sum() for v, o in enumerate(one)
                                     for x, w in zip((o.image, o.d_alpha, o.flow), wts)),
                                 leaves, allow_unused=True)
     n_checked = 0
@@ -1368,76 +1362,6 @@ def test_registry_view_render_crops_the_tile_pad_on_card(view, cuda):
         grads[backend + "_img"] = out.images.detach()
     assert float((grads["cuda_img"] - grads["plain_img"]).abs().max()) <= ATOL
     assert _rel_err(grads["cuda"], grads["plain"]) <= STEP_REL
-
-
-@pytest.mark.gpu
-def test_merge_dyn_bins_matches_bin_gaussians_on_card(cuda):
-    """The camera-shared binning on the card: ``merge_dyn_bins`` of a
-    static and a dynamic cloud (the dynamic one piled in front, so tiles
-    overflow, and a quarter of it at the very place of a static splat, so
-    keys tie) bit-equal to ``bin_gaussians`` over the concatenation and to
-    the same merge on the CPU."""
-    rng = np.random.default_rng(0)
-    ms = rng.normal(size=(3000, 3)).astype(np.float32)
-    ms[:, 2] += 7.0
-    md = rng.normal(size=(1000, 3)).astype(np.float32) * np.float32([0.2, 0.2, 0.05])
-    md[:, 2] += 5.0
-    ms[:250] = md[:250]
-    q = rng.normal(size=(4000, 4)).astype(np.float32)
-    s = np.exp(rng.uniform(-3.5, -2, (4000, 3))).astype(np.float32)
-    kw = dict(tiles_per_gauss=9, max_per_tile=64)
-    res = {}
-    for dev in ("cpu", cuda):
-        to = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
-        sp = projection.project(to(np.concatenate([ms, md])), to(q), to(s),
-                                torch.eye(4, device=dev), to(KMAT), W, H)
-        ps = projection.ProjectedSplats(*(x[:3000] for x in sp))
-        pd = projection.ProjectedSplats(*(x[3000:] for x in sp))
-        merged = tiles.merge_dyn_bins(tiles.bin_static(ps, W, H, **kw), pd, 3000, W, H, **kw)
-        ref = tiles.bin_gaussians(sp, W, H, **kw)
-        live = torch.arange(64, device=dev)[None] < ref.counts[:, None]
-        assert int(merged.max_count) == int(ref.max_count) > 64
-        assert torch.equal(merged.counts, ref.counts)
-        assert torch.equal(torch.where(live, merged.gauss_ids, -1),
-                           torch.where(live, ref.gauss_ids, -1))
-        res[str(dev)] = torch.where(live, merged.gauss_ids, -1).cpu()
-    assert torch.equal(res["cpu"], res[str(cuda)])
-
-
-@pytest.mark.gpu
-def test_shared_static_flow_step_matches_unshared_on_card(cuda):
-    """One flow-on step (B=2, E=3) through the kernels with
-    ``shared_static=True`` and with the default: the loss within 1e-5, each
-    gradient leaf within STEP_REL of its largest magnitude; the shared route
-    launches one exposure-flow pass at a time, the default a view's E-1 = 2
-    in one launch."""
-    ts, batch = _small_train_state(cuda)
-    opt = OptimizationParams(iterations=100, lambda_flow_loss=1e-2)
-    cfg = RasterConfig(max_per_tile=256)
-    leaves = [*G.split_diff(ts.stat)[0], *G.split_diff(ts.dyn)[0],
-              *S.sandwich_leaves(ts.sandwich), *ts.blce.params.leaves()]
-    res, launches = {}, {}
-    for shared in (True, False):
-        fwd = S.make_forward(opt, W, H, 1.0, 3, cfg, shared_static=shared)
-        off = torch.zeros((2, 320, 2), device=cuda, requires_grad=True)
-        before = dict(cuda_raster.launches)
-        total, aux = fwd(ts.stat, ts.dyn, ts.sandwich, ts.blce, off, batch)
-        grads = torch.autograd.grad(total, leaves + [off], allow_unused=True)
-        torch.cuda.synchronize()
-        launches[shared] = {k: cuda_raster.launches[k] - before[k] for k in before}
-        res[shared] = (float(total.detach()), grads)
-    # per view: the latents' launch, the mid render's, and the flow passes'
-    # E-1 = 2 launches shared or one unshared; forward and backward alike
-    assert launches[True] == {"raster_fwd": 2, "raster_fwd_sub": 6,
-                              "raster_bwd": 2, "raster_bwd_sub": 6}
-    assert launches[False] == {"raster_fwd": 2, "raster_fwd_sub": 4,
-                               "raster_bwd": 2, "raster_bwd_sub": 4}
-    np.testing.assert_allclose(res[True][0], res[False][0], rtol=1e-5)
-    for a, b in zip(res[True][1], res[False][1]):
-        if b is None or not b.any():
-            assert a is None or not a.any()
-            continue
-        assert _rel_err(a, b) <= STEP_REL
 
 
 @pytest.mark.gpu

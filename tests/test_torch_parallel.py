@@ -353,7 +353,10 @@ def test_dryrun_summary(dry):
     _, s = dry
     assert s["mesh"] == {"data": 2, "gauss": 2} and s["backend"] == "gloo"
     assert s["checkpoint_roundtrip"] == "bit-equal"
-    assert s["tile_ranges"] == {"tiles": 12, "per_rank": 6, "this_rank": [0, 6],
+    # rank 0's range in the launches of one view (the mid render) and of
+    # two (the E-1 = 2 latent renders, the E-1 = 2 flow passes)
+    assert s["tile_ranges"] == {"tiles": 12, "per_view_per_rank": 6,
+                                "this_rank": {"1": [0, 6], "2": [0, 12]},
                                 "composites": s["tile_ranges"]["composites"]}
     assert s["tile_ranges"]["composites"] > 0 and s["densify_dropped"] >= 0
 

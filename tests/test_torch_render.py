@@ -26,11 +26,13 @@ from mobgs_tpu.data import synthetic as jsyn
 from mobgs_tpu.models import gaussians as jG
 from mobgs_tpu.models import render as jR
 from mobgs_tpu.models import sandwich as jsand
+from mobgs_tpu.ops import projection as jprojection
 from mobgs_tpu.ops.rasterize import RasterConfig as JRasterConfig
 
 from mobgs_tpu_torch.data import cameras, synthetic
 from mobgs_tpu_torch.io import from_jax
 from mobgs_tpu_torch.models import render as R
+from mobgs_tpu_torch.ops import projection
 from mobgs_tpu_torch.ops.rasterize import RasterConfig
 from mobgs_tpu_torch.viewer import ViewerServer, make_viewer_render
 
@@ -119,21 +121,29 @@ def test_render_view_matches_jax(scene, name):
     assert int(po.tile_max) == int(jo.tile_max)
 
 
-def test_assemble_project_and_exposure_shift_match(scene):
+def test_assembly_and_projection_with_exposure_shift_match(scene):
+    """The assembled set at an exposure-shifted time and its projection;
+    the dynamic rows' projection alone; the combined set's ``means2d``."""
     jc, pc = _cams(0.9)
-    jg, js = jR.assemble_project(*scene["j"][:2], jc, W, H, max_time=4.0,
-                                 delta_exposure=0.6)
-    pg, ps = R.assemble_project(*scene["p"][:2], pc, W, H, max_time=4.0,
-                                delta_exposure=0.6)
+    jg = jR.assemble(*scene["j"][:2], jc.time, 4.0, 0.6)
+    pg = R.assemble(*scene["p"][:2], pc.time, 4.0, 0.6)
     for a, b in zip(pg, jg):
         np.testing.assert_allclose(a.detach().numpy(), np.asarray(b),
                                    atol=1e-5, rtol=1e-5)
-    np.testing.assert_allclose(ps.means2d.detach().numpy(),
-                               np.asarray(js.means2d), atol=1e-4, rtol=1e-5)
-    np.testing.assert_allclose(
-        R.project_dyn2d(scene["p"][1], pc, W, H, 4.0, 0.6).detach().numpy(),
-        np.asarray(jR.project_dyn2d(scene["j"][1], jc, W, H, 4.0, 0.6)),
-        atol=1e-4, rtol=1e-5)
+
+    def jproj(m, q, s):
+        return jprojection.project(m, q, s, jc.w2c, jc.K, W, H).means2d
+
+    def pproj(m, q, s):
+        return projection.project(m, q, s, pc.w2c, pc.K, W, H).means2d.detach().numpy()
+
+    np.testing.assert_allclose(pproj(pg.means, pg.quats, pg.scales),
+                               np.asarray(jproj(jg.means, jg.quats, jg.scales)),
+                               atol=1e-4, rtol=1e-5)
+    jd = jR.assemble_dyn(scene["j"][1], jc.time, 4.0, 0.6)
+    pd = R.assemble_dyn(scene["p"][1], pc.time, 4.0, 0.6)
+    np.testing.assert_allclose(pproj(*pd[:3]), np.asarray(jproj(*jd[:3])),
+                               atol=1e-4, rtol=1e-5)
     np.testing.assert_allclose(
         R.project_combined(*scene["p"][:2], pc, W, H, 4.0).detach().numpy(),
         np.asarray(jR.project_combined(*scene["j"][:2], jc, W, H, 4.0)),

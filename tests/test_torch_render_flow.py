@@ -1,14 +1,13 @@
 """The train step's batched exposure-flow passes
 (``models/render.py::render_flow_passes``) on the CPU's plain compositor:
-a view's passes at its own camera in one pass give each pass's image,
-dynamic alpha, flow columns and projected centres of its own
-``assemble_project`` + ``render_view`` call to the bit, and every leaf's
-gradient within GRAD_REL of its largest magnitude (the batched pass sums
-the passes' gradients in another order); a flow-on step through it equals
-the step through one call a pass (loss rtol 1e-6, gradients as above); the
-step counts one batched call and its passes per batch view
-(``render.flow_calls``, ``render.flow_views``), none with flow off or on
-the shared static pool. Imports no JAX."""
+a view's passes at its own camera in one call give each pass's image,
+dynamic alpha, flow columns and projected centres of its own one-pass call
+of the same pipeline to the bit, and every leaf's gradient within GRAD_REL
+of its largest magnitude (the batched pass sums the passes' gradients in
+another order); a flow-on step through it equals the step through one
+call a pass (loss rtol 1e-6, gradients as above); the step counts one
+batched call and its passes per batch view (``render.flow_calls``,
+``render.flow_views``), none with flow off. Imports no JAX."""
 
 import numpy as np
 import pytest
@@ -37,27 +36,20 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
+_flow_passes = R.render_flow_passes
+
+
 def _per_pass(stat, dyn, sandwich, cam, width, height, mid2d, max_time, shifts,
               config):
-    """The passes as one ``assemble_project`` and ``render_view`` call each,
-    stacked as ``render_flow_passes`` returns them."""
-    outs, means2d = [], []
-    for v in range(shifts.shape[0]):
-        geom, splats = R.assemble_project(stat, dyn, cam, width, height, max_time,
-                                          float(shifts[v]), config)
-        flow2d = (mid2d - splats.means2d).detach()
-        outs.append(R.render_view(stat, dyn, sandwich, cam, width, height,
-                                  torch.zeros(3), max_time, get_dynamic=True,
-                                  extra_colors=flow2d, subset_alpha_only=True,
-                                  want_depth=False, want_alpha=False,
-                                  precomputed=(geom, splats), config=config))
-        means2d.append(splats.means2d)
-    return R.FlowPassOut(images=torch.stack([o.image for o in outs]),
-                         d_alphas=torch.stack([o.d_alpha for o in outs]),
-                         flows=torch.stack([o.flow for o in outs]),
-                         means2d=torch.stack(means2d),
-                         tile_max=torch.stack([torch.as_tensor(o.tile_max)
-                                               for o in outs]).amax())
+    """The passes as one one-pass ``render_flow_passes`` call each, their
+    outputs concatenated along the view axis as the batched call gives
+    them."""
+    outs = [_flow_passes(stat, dyn, sandwich, cam, width, height, mid2d, max_time,
+                         shifts[v:v + 1], config) for v in range(shifts.shape[0])]
+    return outs[0]._replace(
+        image=torch.cat([o.image for o in outs]), d_alpha=torch.cat([o.d_alpha for o in outs]),
+        flow=torch.cat([o.flow for o in outs]), means2d=torch.cat([o.means2d for o in outs]),
+        tile_max=torch.stack([o.tile_max for o in outs]).amax())
 
 
 def _rel_errs(ga, gb):
@@ -93,16 +85,16 @@ def test_render_flow_passes_equals_render_view_calls(view):
     bat = R.render_flow_passes(ts.stat, ts.dyn, ts.sandwich, cam, W, H, mid2d, 1.0,
                                shifts, CFG)
     one = _per_pass(ts.stat, ts.dyn, ts.sandwich, cam, W, H, mid2d, 1.0, shifts, CFG)
-    assert bat.images.shape == (E - 1, H, W, 3) and bat.flows.shape == (E - 1, H, W, 2)
-    assert float(bat.d_alphas.detach().std()) > 0.01
-    assert float(bat.flows.detach().abs().max()) > 0.1
-    for name in ("images", "d_alphas", "flows", "means2d"):
+    assert bat.image.shape == (E - 1, H, W, 3) and bat.flow.shape == (E - 1, H, W, 2)
+    assert float(bat.d_alpha.detach().std()) > 0.01
+    assert float(bat.flow.detach().abs().max()) > 0.1
+    for name in ("image", "d_alpha", "flow", "means2d"):
         assert torch.equal(getattr(bat, name), getattr(one, name)), name
     assert torch.equal((mid2d - bat.means2d).detach(), (mid2d - one.means2d).detach())
     assert int(bat.tile_max) == int(one.tile_max)
 
     def loss(o):
-        return sum((x * w).sum() for x, w in zip((o.images, o.d_alphas, o.flows), wts))
+        return sum((x * w).sum() for x, w in zip((o.image, o.d_alpha, o.flow), wts))
 
     g_bat = torch.autograd.grad(loss(bat), leaves, allow_unused=True)
     g_one = torch.autograd.grad(loss(one), leaves, allow_unused=True)
@@ -144,15 +136,14 @@ def test_flow_step_equals_per_pass_route(monkeypatch):
     np.testing.assert_allclose(a[4], b[4], rtol=1e-6)
 
 
-@pytest.mark.parametrize("case", ["flow", "flow_off", "shared_static"])
+@pytest.mark.parametrize("case", ["flow", "flow_off"])
 def test_step_counts_its_batched_flow_passes(case):
     """One step at B=2, E=9 with flow on: two batched calls of eight passes
-    each; none with flow off, nor on the shared static pool, which keeps its
-    call a pass."""
+    each; none with flow off."""
     ts, batch = _state(E)
     opt = OptimizationParams(iterations=100,
                              lambda_flow_loss=0.0 if case == "flow_off" else 1e-2)
-    step = S.make_train_step(opt, W, H, 1.0, E, CFG, shared_static=case == "shared_static")
+    step = S.make_train_step(opt, W, H, 1.0, E, CFG)
     obs.tracing(spans=False, counters=True)
     obs.reset()
     try:

@@ -1,8 +1,8 @@
 """The train step's batched latent renders (``models/render.py::render_latents``)
 on the CPU's plain compositor: V cameras in one pass give each view's image
-of its own ``render_view`` call to the bit, and every leaf's gradient within
-GRAD_REL of its largest magnitude (the batched pass sums the views'
-gradients in another order); the step counts one batched call and its views
+of its own one-view call of the same pipeline (``render_view``) to the bit,
+and every leaf's gradient within GRAD_REL of its largest magnitude (the
+batched pass sums the views' gradients in another order); the step counts one batched call and its views
 per batch view (``render.latent_calls``, ``render.latent_views``), none
 before ``start_warp``. Imports no JAX."""
 
@@ -101,13 +101,13 @@ def test_render_latents_equals_render_view_calls(case):
                          W, H, torch.zeros(3), 1.0, None if shifts is None else shifts[v],
                          want_depth=False, want_alpha=False, config=CFG)
            for v in range(len(views))]
-    assert bat.images.shape == (len(views), H, W, 3)
-    assert float(bat.images.detach().std()) > 0.01
+    assert bat.image.shape == (len(views), H, W, 3)
+    assert float(bat.image.detach().std()) > 0.01
     for v, o in enumerate(one):
-        assert torch.equal(bat.images[v], o.image), v
+        assert torch.equal(bat.image[v], o.image), v
     assert int(bat.tile_max) == max(int(o.tile_max) for o in one)
 
-    g_bat = torch.autograd.grad((bat.images * weight).sum(), leaves, allow_unused=True,
+    g_bat = torch.autograd.grad((bat.image * weight).sum(), leaves, allow_unused=True,
                                 retain_graph=True)
     g_one = torch.autograd.grad(sum((o.image * weight[v]).sum() for v, o in enumerate(one)),
                                 leaves, allow_unused=True)

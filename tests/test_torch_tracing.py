@@ -2,7 +2,7 @@
 off, the training loop records nothing; on, it records exactly the spans
 of its stages, with their counts and nesting, and trains bit for bit as
 with them off; the tile binning's counters equal a direct count of its
-entries on both binning routes; and under ``torch.profiler`` each span is
+entries, for one view and summed over the views of ``bin_views``; and under ``torch.profiler`` each span is
 a ``mobgs.*`` annotation of the trace."""
 
 import numpy as np
@@ -124,7 +124,7 @@ def test_nested_render_calls_take_longer_paths(scene):
     cam = Camera(w2c=torch.as_tensor(data.w2c[0]), K=torch.as_tensor(data.K[0]),
                  time=torch.as_tensor(data.time[0]))
     obs.tracing(spans=True)
-    with obs.span("step"):
+    with obs.span("step"), obs.span("render"):
         R.project_combined(ts.stat, ts.dyn, cam, W, H, data.max_time, None, CFG)
     spans = obs.report()["spans"]
     assert set(spans) == {"step", "step/render", "step/render/render"}
@@ -146,19 +146,20 @@ def _direct(splats, tpg, K):
     return counts
 
 
-@pytest.mark.parametrize("route", ["bin_gaussians", "shared"])
+@pytest.mark.parametrize("route", ["bin_gaussians", "bin_views"])
 def test_bin_counters_match_a_direct_count(route):
-    tpg, K, n_s, n_d = 16, 24, 400, 100
-    sp_s, sp_d = _splats(n_s, 1), _splats(n_d, 2)
-    both = ProjectedSplats(*(torch.cat([a, b]) for a, b in zip(sp_s, sp_d)))
-    counts = _direct(both, tpg, K)
+    """One binning's counters, and those of a binning of two views, each
+    view's own (``bin_views``): the per-view sums."""
+    tpg, K, n = 16, 24, 500
+    views = [_splats(n, 1), _splats(n, 2)] if route == "bin_views" else [_splats(n, 1)]
+    counts = torch.stack([_direct(sp, tpg, K) for sp in views])
     obs.tracing(spans=False, counters=True)
-    if route == "shared":
-        tiles.merge_dyn_bins(tiles.bin_static(sp_s, W, H, tpg, K), sp_d, n_s, W, H, tpg, K)
+    if route == "bin_views":
+        tiles.bin_views(ProjectedSplats(*(torch.stack(x) for x in zip(*views))), W, H, tpg, K)
     else:
-        tiles.bin_gaussians(both, W, H, tpg, K)
+        tiles.bin_gaussians(views[0], W, H, tpg, K)
     c = obs.report()["counters"]
-    assert c["bin.candidates"] == (n_s + n_d) * tpg
+    assert c["bin.candidates"] == len(views) * n * tpg
     assert c["bin.valid"] == int(counts.sum())
     assert c["bin.kept"] == int(counts.clamp(max=K).sum())
     assert c["bin.tiles_cut"] == int((counts > K).sum())
